@@ -1,0 +1,57 @@
+"""Plain PyTorch version of decode attention (GQA, per-row valid lengths).
+
+Same function as the CUDA kernel, atom form included.  f32 math, output in
+the input dtype; a row whose length is 0 gives zeros (the ``l == 0 -> 1``
+guard of the kernel), never NaN.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _attend(q, k_cache, v_cache, lens):
+    """q [B,Hk,G,D], caches [B,S,Hk,D], lens [B] -> f32 [B,Hk,G,D]."""
+    S, D = k_cache.shape[1], q.shape[-1]
+    s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k_cache.float())
+    s = s * (1.0 / D ** 0.5)
+    lens = lens.clamp(0, S)
+    valid = torch.arange(S, device=q.device)[None, :] < lens[:, None]
+    valid = valid[:, None, None, :]
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)                       # masked entries: exp(-inf) = 0
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()) / l
+
+
+def decode_attention_ref(q, k_cache, v_cache, lens):
+    """q: [B,Hq,D]; caches: [B,S,Hk,D]; lens: [B] int -> [B,Hq,D]."""
+    B, Hq, D = q.shape
+    Hk = k_cache.shape[2]
+    o = _attend(q.reshape(B, Hk, Hq // Hk, D), k_cache, v_cache, lens)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_attention_atom_ref(q, k_cache, v_cache, lens, o, *, start: int,
+                              num_rows: int):
+    """Rows ``[start, start+num_rows)`` of the ``R = B*Hk`` schedulable rows
+    (row ``r`` is batch ``r // Hk``, kv head ``r % Hk``), written in place
+    into the running output ``o`` [B,Hq,D]; every other row is left as it is.
+    """
+    B, Hq, D = q.shape
+    Hk = k_cache.shape[2]
+    G = Hq // Hk
+    assert 0 <= start and start + num_rows <= B * Hk, (start, num_rows, B * Hk)
+    og = o.view(B, Hk, G, D)
+    qg = q.reshape(B, Hk, G, D)
+    r, end = start, start + num_rows
+    while r < end:                              # one batch row at a time
+        b, h0 = divmod(r, Hk)
+        h1 = min(Hk, h0 + end - r)
+        og[b, h0:h1] = _attend(qg[b:b + 1, h0:h1], k_cache[b:b + 1, :, h0:h1],
+                               v_cache[b:b + 1, :, h0:h1],
+                               lens[b:b + 1])[0].to(o.dtype)
+        r += h1 - h0
+    return o

@@ -1,0 +1,81 @@
+"""Serving launcher: the continuous-batching engine over a synthetic request
+stream, reporting latency and throughput.
+
+Runs on the GPU unless ``--device cpu`` is given.  Submitting the deployment
+to the online control plane (``--ctl-state-dir``) is not ported yet.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --requests 8 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+        --reduced --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs.registry import ARCH_IDS, get_config
+
+
+def serve(cfg, *, n_requests: int = 16, max_slots: int = 4,
+          max_len: int = 128, max_new: int = 16, seed: int = 0,
+          verbose: bool = True, device=None, params=None):
+    """Serve ``n_requests`` random prompts and drain.  ``device=None`` means
+    the GPU (raises when there is none).  Returns (done requests,
+    latencies)."""
+    from repro_torch.serve.engine import ServeConfig, SlotServer
+
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    srv = SlotServer(cfg, params, serve_cfg=ServeConfig(
+        max_slots=max_slots, max_len=max_len, max_new_tokens=max_new),
+        seed=seed, clock=lambda: time.time() - t0, device=device)
+    for _ in range(n_requests):
+        plen = int(rng.integers(4, max_len // 2))
+        srv.submit(rng.integers(2, cfg.vocab_size, plen).astype(np.int32),
+                   max_new_tokens=max_new)
+    done = srv.run_until_drained()
+    lats = srv.latencies()
+    if verbose:
+        toks = sum(len(r.output) for r in done)
+        wall = time.time() - t0
+        print(f"[serve] {len(done)} requests, {toks} tokens in {wall:.2f}s "
+              f"({toks/wall:.1f} tok/s) p50={np.percentile(lats,50)*1e3:.0f}ms "
+              f"p99={np.percentile(lats,99)*1e3:.0f}ms on {srv.device}")
+    return done, lats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: cuda (fails without a GPU)")
+    ap.add_argument("--ctl-state-dir", default=None,
+                    help="not ported yet: submit this deployment as a "
+                         "control-plane job instead of serving locally")
+    args = ap.parse_args(argv)
+    if args.ctl_state_dir is not None:
+        raise SystemExit("--ctl-state-dir: the control plane is not ported "
+                         "yet (ROADMAP A12); use repro.launch.serve to "
+                         "submit a job")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise SystemExit("SlotServer serves decoder-only configs")
+    serve(cfg, n_requests=args.requests, max_slots=args.max_slots,
+          max_len=args.max_len, max_new=args.max_new, seed=args.seed,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Shared model infrastructure: param trees, initializers, dtype helpers.
+
+Models are plain functions on tensors: ``init_*`` builds a nested dict of
+tensors (the parameter tree; paths like ``blocks/0/attn/wq``), apply
+functions take ``(params, inputs)``.  Everything that allocates takes an
+explicit ``device``; initialisers draw from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16, "int8": torch.int8}[name]
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the GPU: entry points run on the card unless the caller
+    asks for another device, and never carry on on the CPU by themselves."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is present and device=None means 'cuda'; "
+                "pass device='cpu' (or --device cpu) to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(seed)
+    return gen
+
+
+# ---------------------------------------------------------------------------
+# Initializers (seeded, shape-aware); drawn in f32 on the generator's device
+# ---------------------------------------------------------------------------
+
+def normal_init(gen: torch.Generator, shape, dtype, scale: float = 0.02):
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.mul_(scale).to(dtype)
+
+
+def fan_in_init(gen: torch.Generator, shape, dtype, fan_axis: int = 0):
+    fan_in = shape[fan_axis] if shape else 1
+    return normal_init(gen, shape, dtype, 1.0 / math.sqrt(max(1, fan_in)))
+
+
+def zeros_init(gen: torch.Generator, shape, dtype):
+    return torch.zeros(tuple(shape), dtype=dtype, device=gen.device)
+
+
+def ones_init(gen: torch.Generator, shape, dtype):
+    return torch.ones(tuple(shape), dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# Contraction helpers: f32 accumulation, output in the input dtype
+# ---------------------------------------------------------------------------
+# On the GPU a bf16 product accumulates in f32 inside the library call and
+# rounds once on output.  On the CPU the operands are upcast to f32 and the
+# result rounded once, which is the same contract.
+
+def _upcast(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu" and x.dtype == torch.bfloat16
+
+
+def dot(x, w):
+    """Matmul with f32 accumulation, output in x.dtype."""
+    if _upcast(x):
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x, w)
+
+
+def einsum(spec, *args, out_dtype: Optional[torch.dtype] = None):
+    dt = out_dtype if out_dtype is not None else args[0].dtype
+    if any(_upcast(a) for a in args):
+        return torch.einsum(spec, *(a.float() for a in args)).to(dt)
+    return torch.einsum(spec, *args).to(dt)
+
+
+def dot_f32(x, w):
+    """``x @ w`` with the result kept in f32 (the LM head's logits)."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda":
+        lead = x.shape[:-1]
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*lead, w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# Param-tree helpers
+# ---------------------------------------------------------------------------
+
+def tree_paths(tree: PyTree, prefix: str = "") -> list[tuple[str, Any]]:
+    out = []
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.extend(tree_paths(tree[k], f"{prefix}/{k}" if prefix else k))
+    else:
+        out.append((prefix, tree))
+    return out
+
+
+def tree_map(fn, tree: PyTree) -> PyTree:
+    """Apply ``fn`` to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def count_params(params: PyTree) -> int:
+    return sum(int(np.prod(x.shape)) for _, x in tree_paths(params)
+               if hasattr(x, "shape"))
