@@ -7,11 +7,14 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (values, atom order-freedom,
-rows outside an atom untouched), times them beside their bound, then serves
-full-size ``llama3-8b`` and ``olmo-1b`` (random weights from a seed) through
-``repro_torch.launch.serve.serve`` and checks that the path went through the
-kernels.  Every phase prints one JSON line; any failure ends the run with a
-non-zero exit code.  The last line is
+rows / tiles outside an atom untouched), times them beside their bound, then
+drives two paths, each with the kernels' launch counts set to 0 just before
+and read just after: it serves full-size ``llama3-8b`` and ``olmo-1b``
+(random weights from a seed) through ``repro_torch.launch.serve.serve``
+(decode and flash attention), and runs the atom-count sweep
+``repro_torch.launch.atoms.sweep`` (the atomized matmul at the full-width
+``llama3-8b`` projections, and flash attention).  Every phase prints one JSON
+line; any failure ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--profile`` adds a ``profile`` line: device time by kernel over a prefill
@@ -34,9 +37,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM datasheet values (dense rates, 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet rates (dense, 700 W power limit)
+from repro_torch.roofline.analysis import H100  # noqa: E402
+# atom matmul against its plain version, as max abs error over the largest
+# |output| (the tolerance's reasoning is in that module)
+from repro_torch.launch.atoms import MM_TOL  # noqa: E402
 
 # kernel against its plain version on the same inputs, max abs error.
 # float32: both sides do f32 math and differ only in summation order and in
@@ -74,46 +79,21 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, *, iters: int, flush=None) -> float:
-    """Median device time of one call of ``fn`` over ``iters`` calls, each
-    between its own pair of CUDA events.  Before the first event the stream
-    is kept busy for about a millisecond, so the host has enqueued all of
-    ``fn`` by the time the device reaches it and the time holds no gaps in
-    which the device waits for Python.  ``flush`` (a buffer larger than the
-    L2 cache) is overwritten before each call so that it finds the cache
-    cold; without it the inputs stay in the cache from the call before."""
+    """Median device time of one call of ``fn``, with no host gap inside it
+    (``repro_torch.launch.timing.device_ms``); NaN in a rehearsal."""
     if not torch.cuda.is_available():          # rehearsal: no device time
         fn()
         return float("nan")
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(2_000_000)           # cycles of a spinning kernel
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    from repro_torch.launch.timing import device_ms
+    return device_ms(fn, iters=iters, flush=flush)
 
 
 def enqueue_ms(torch, fn, *, iters: int = 200) -> float:
     """Host time to enqueue one call of ``fn`` (no wait for the device)."""
     if not torch.cuda.is_available():
         return float("nan")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / iters * 1e3
+    from repro_torch.launch import timing
+    return timing.enqueue_ms(fn, iters=iters)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +190,102 @@ def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True):
     return err
 
 
+def _mm_err(torch, got, want, dtype):
+    """(max abs error, its limit) of a matmul result against the plain one."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, MM_TOL[dtype] * want.float().abs().max().item()
+
+
+def check_matmul(torch, dev, gen, *, M, N, K, dtype, bm=128, bn=None,
+                 strided=False):
+    """One atom-matmul case: values, atoms in permuted order bit-equal to
+    n=1, tiles outside an atom untouched and those inside equal to the plain
+    atom's.  Returns the max abs error."""
+    from repro_torch.kernels.atom_matmul import ops, ref
+    from repro_torch.kernels.atoms import tile_count
+    dt = getattr(torch, dtype)
+    bn = bn or bm
+    if strided:     # operands that are column ranges of wider matrices
+        a = _randn(torch, gen, (M, K + 24), dt, dev)[:, 16:16 + K]
+        b = _randn(torch, gen, (K, N + 8), dt, dev)[:, :N]
+    else:
+        a = _randn(torch, gen, (M, K), dt, dev)
+        b = _randn(torch, gen, (K, N), dt, dev)
+    what = f"atom_matmul {dtype} M={M} N={N} K={K} block=({bm},{bn})"
+    want = ref.matmul_ref(a, b)
+    got = ops.atom_matmul(a, b, block_m=bm, block_n=bn)
+    err, limit = _mm_err(torch, got, want, dtype)
+    if not (math.isfinite(err) and err <= limit):
+        fail(f"{what}: max abs err {err} > {limit}")
+    total = tile_count(M, N, bm, bn)
+    n = min(3, total)
+    a3 = ops.atom_matmul(a, b, n_atoms=3, block_m=bm, block_n=bn)
+    p3 = ops.atom_matmul(a, b, n_atoms=3, block_m=bm, block_n=bn,
+                         order=tuple(range(1, n)) + (0,))
+    if not (torch.equal(a3, p3) and _same(torch, a3, got)):
+        fail(f"{what}: atoms do not compose bit for bit")
+    start, num = total // 3, max(1, total // 3)
+    o = torch.full_like(got, 7.0)
+    ops.matmul_atom(a, b, o, start=start, num_tiles=num, block_m=bm,
+                    block_n=bn)
+    r = ref.matmul_atom_ref(a, b, torch.full_like(got, 7.0), start=start,
+                            num_tiles=num, block_m=bm, block_n=bn)
+    nn = -(-N // bn)
+    tile_of = (torch.arange(M, device=dev)[:, None] // bm * nn
+               + torch.arange(N, device=dev)[None, :] // bn)
+    inside = (tile_of >= start) & (tile_of < start + num)
+    if not (_same(torch, o[inside], got[inside])
+            and bool((o[~inside] == 7.0).all())
+            and _mm_err(torch, o[inside], r[inside], dtype)[0] <= limit):
+        fail(f"{what}: matmul_atom wrote outside its tiles or differs from "
+             f"the plain atom")
+    return err
+
+
+def matmul_headline(torch, dev, gen, flush, iters, real):
+    """The atomized matmul at the widest llama3-8b projection of a
+    1000-token prefill (w_i / w_g: 4096 -> 14336), one atom."""
+    from repro_torch.kernels.atom_matmul import ops, ref
+    from repro_torch.kernels.atoms import tile_count
+    M, K, N = (1000, 4096, 14336) if real else (40, 64, 300)
+    dt = torch.bfloat16
+    a = _randn(torch, gen, (M, K), dt, dev)
+    b = _randn(torch, gen, (K, N), dt, dev)
+    want = ref.matmul_ref(a, b)
+    err, limit = _mm_err(torch, ops.atom_matmul(a, b), want, "bfloat16")
+    if not err <= limit:
+        fail(f"atom_matmul at the projection shape: err {err} > {limit}")
+    # the kernel alone: one atom of every tile into an output made once, so
+    # the memset of a fresh output is not timed
+    c = torch.empty((M, N), dtype=dt, device=dev)
+    one = lambda: ops.matmul_atom(a, b, c, start=0,
+                                  num_tiles=tile_count(M, N, 256, 256))
+    ms = time_ms(torch, one, iters=iters, flush=flush)
+    host_ms = enqueue_ms(torch, one)
+    err_c = _mm_err(torch, c, want, "bfloat16")[0]
+    if not err_c <= limit:
+        fail(f"matmul_atom at the projection shape: err {err_c} > {limit}")
+    plain_ms = time_ms(torch, lambda: ref.matmul_ref(a, b), iters=iters,
+                       flush=flush)
+    lib = lambda: torch.matmul(a, b)
+    lib_err = _mm_err(torch, lib(), want, "bfloat16")[0]
+    if not lib_err <= limit:
+        fail(f"library yardstick disagrees with the plain version: {lib_err}")
+    library_ms = time_ms(torch, lib, iters=iters, flush=flush)
+    n_bytes = (M * K + K * N + M * N) * a.element_size()
+    flops = 2 * M * N * K
+    t_bytes = n_bytes / H100.hbm_bw * 1e3
+    t_ops = flops / H100.peak_flops * 1e3
+    return {"shape": {"M": M, "K": K, "N": N, "block_m": 256,
+                      "block_n": 256},
+            "dtype": "bfloat16", "max_abs_err": err, "err_limit": limit,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "enqueue_ms": host_ms,
+            "bytes": n_bytes, "flops": flops,
+            "l2": "cold (flushed before every launch)"}
+
+
 def decode_headline(torch, dev, gen, flush, iters):
     """Decode attention at the serving path's shape: 4 slots of llama3-8b,
     a 2048-token stripe each, ragged lengths."""
@@ -243,8 +319,8 @@ def decode_headline(torch, dev, gen, flush, iters):
     esz = q.element_size()
     n_bytes = (2 * sum(lens) * Hk * D + 2 * B * Hq * D) * esz + 4 * B
     flops = 4 * sum(lens) * Hq * D
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = n_bytes / H100.hbm_bw * 1e3
+    t_ops = flops / H100.peak_flops * 1e3
     return {"shape": {"B": B, "Hq": Hq, "Hk": Hk, "D": D, "S": S, "lens": lens},
             "dtype": "bfloat16", "max_abs_err": err,
             "err_limit": TOL[("decode", "bfloat16")], "ms": ms,
@@ -286,8 +362,9 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16"):
     pairs = S * (S + 1) // 2                       # unmasked (query, key) pairs
     flops = 4 * B * Hq * D * pairs
     n_bytes = (2 * B * S * Hq * D + 2 * B * S * Hk * D) * esz
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = n_bytes / H100.hbm_bw * 1e3
+    t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
+                     else H100.peak_flops_f32) * 1e3
     return {"shape": {"B": B, "Sq": S, "Sk": S, "Hq": Hq, "Hk": Hk, "D": D,
                       "causal": True},
             "dtype": dtype, "max_abs_err": err,
@@ -322,12 +399,31 @@ def kernels_phase(torch, dev, real: bool):
               dict(B=1, Sq=255, Sk=255, Hq=16, Hk=16, D=128, dtype="bfloat16"),
               dict(B=2, Sq=130, Sk=130, Hq=4, Hk=4, D=64, dtype="float32"),
               dict(B=2, Sq=90, Sk=50, Hq=6, Hk=2, D=64, dtype="float32")]
+        # the reference's test shapes (tests/test_kernels.py) at block 128;
+        # the llama3-8b projections of a 1000-token prefill and of a
+        # 4-slot decode step at the default block 256
+        mm = [dict(M=M, N=N, K=K, dtype=dt)
+              for M, N, K in ((128, 128, 128), (300, 260, 200),
+                              (64, 512, 96), (257, 129, 65))
+              for dt in ("float32", "bfloat16")]
+        mm += [dict(M=1000, K=K, N=N, dtype="bfloat16", bm=256)
+               for K, N in ((4096, 4096), (4096, 1024), (4096, 14336),
+                            (14336, 4096))]
+        mm += [dict(M=4, K=4096, N=14336, dtype="bfloat16", bm=256),
+               dict(M=1024, N=1024, K=1024, dtype="float32", bm=256),
+               dict(M=300, N=700, K=70, dtype="bfloat16", bm=128, bn=384),
+               dict(M=200, N=260, K=96, dtype="float32", bm=256, bn=128,
+                    strided=True)]
     else:
         dec = [dict(B=3, Hq=4, Hk=2, D=16, S=40, dtype="float32", lens=[40, 0, 7]),
                dict(B=2, Hq=4, Hk=4, D=16, S=33, dtype="bfloat16", lens=[1, 33], strided=True)]
         fl = [dict(B=2, Sq=70, Sk=70, Hq=4, Hk=2, D=16, dtype="float32"),
               dict(B=1, Sq=20, Sk=90, Hq=4, Hk=1, D=16, dtype="bfloat16"),
               dict(B=1, Sq=90, Sk=50, Hq=2, Hk=2, D=16, dtype="float32")]
+        mm = [dict(M=257, N=129, K=65, dtype="float32"),
+              dict(M=40, N=300, K=64, dtype="bfloat16", bm=256),
+              dict(M=70, N=300, K=24, dtype="bfloat16", bm=128, bn=256,
+                   strided=True)]
     for c in dec:
         err = check_decode(torch, dev, gen, **c)
         cases.append({"kernel": "decode_attention", **c, "max_abs_err": err,
@@ -336,37 +432,47 @@ def kernels_phase(torch, dev, real: bool):
         err = check_flash(torch, dev, gen, **c)
         cases.append({"kernel": "flash_attention", **c, "max_abs_err": err,
                       "err_limit": TOL[("flash", c["dtype"])]})
+    for c in mm:
+        err = check_matmul(torch, dev, gen, **c)
+        cases.append({"kernel": "atom_matmul", **c, "max_abs_err": err,
+                      "err_limit": f"{MM_TOL[c['dtype']]} x max|output|"})
     flush = (torch.empty(256 << 20, dtype=torch.uint8, device=dev)
              if real else None)
     k1 = decode_headline(torch, dev, gen, flush, iters=30 if real else 1)
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
     k2_f32 = flash_headline(torch, dev, gen, iters=10 if real else 1,
                             real=real, dtype="float32")
+    k3 = matmul_headline(torch, dev, gen, flush, iters=20 if real else 1,
+                         real=real)
     del flush
     if real:
         torch.cuda.synchronize()
     emit("kernels", cases=cases, decode_attention=k1, flash_attention=k2,
-         flash_attention_float32=k2_f32,
+         flash_attention_float32=k2_f32, atom_matmul=k3,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
                   "rows / tiles outside an atom untouched"])
-    return k1, k2
+    return k1, k2, k3
 
 
 # ---------------------------------------------------------------------------
 # the serving path
 # ---------------------------------------------------------------------------
 
-def reset_counts():
+def _wrappers():
+    from repro_torch.kernels.atom_matmul import ops as m_ops
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.flash_attention import ops as f_ops
-    d_ops.launches = 0
-    f_ops.launches = 0
+    return {"decode_attention": d_ops, "flash_attention": f_ops,
+            "atom_matmul": m_ops}
+
+
+def reset_counts():
+    for ops in _wrappers().values():
+        ops.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels.decode_attention import ops as d_ops
-    from repro_torch.kernels.flash_attention import ops as f_ops
-    return {"decode_attention": d_ops.launches, "flash_attention": f_ops.launches}
+    return {name: ops.launches for name, ops in _wrappers().items()}
 
 
 @contextlib.contextmanager
@@ -491,8 +597,10 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
         if r.t_first_token is None or r.t_finish is None:
             fail(f"{arch}: request {r.rid} has no timestamps")
     want = {"flash_attention": calls["prefill"] * cfg.n_layers,
-            "decode_attention": calls["decode_step"] * cfg.n_layers}
-    if real and (launches != want or min(launches.values()) == 0):
+            "decode_attention": calls["decode_step"] * cfg.n_layers,
+            "atom_matmul": 0}           # not on the serving path
+    if real and (launches != want or launches["flash_attention"] == 0
+                 or launches["decode_attention"] == 0):
         fail(f"{arch}: launch counts {launches} but the path implies {want}")
     if calls["prefill"] != n_requests or calls["decode_step"] == 0:
         fail(f"{arch}: {calls} engine calls for {n_requests} requests")
@@ -544,6 +652,34 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
 
 
 # ---------------------------------------------------------------------------
+# the atomization path
+# ---------------------------------------------------------------------------
+
+def atoms_phase(torch, dev, real: bool):
+    """The atom-count sweep through its entry point, counts set to 0
+    first: every atomized result bit-equal to one atom."""
+    from repro_torch.launch import atoms
+    reset_counts()
+    t0 = time.time()
+    records = atoms.sweep(device=dev, quick=not real)
+    if real:
+        torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = read_counts()
+    if real and (launches["atom_matmul"] == 0
+                 or launches["flash_attention"] == 0):
+        fail(f"atoms: launch counts {launches}: the sweep did not go through "
+             f"the kernels")
+    if any(r["max_abs_err"] != 0 for r in records):
+        fail("atoms: an atomized result differs from one atom")
+    if not all(r["plain_err"] <= r["plain_limit"] for r in records):
+        fail("atoms: one atom differs from the plain version")
+    emit("atoms", seconds=seconds, launches=launches, rows=atoms.rows(records),
+         records=records)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     rehearse = "--rehearse" in argv
@@ -573,7 +709,7 @@ def main(argv) -> int:
              libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
              flags=" ".join(build.NVCC_FLAGS))
 
-    k1, k2 = kernels_phase(torch, dev, real)
+    k1, k2, k3 = kernels_phase(torch, dev, real)
 
     sizes = (dict(n_requests=8, max_slots=4, max_len=2048, max_new=16) if real
              else dict(n_requests=3, max_slots=2, max_len=32, max_new=4))
@@ -582,6 +718,7 @@ def main(argv) -> int:
     sizes = (dict(n_requests=4, max_slots=2, max_len=512, max_new=8) if real
              else dict(n_requests=2, max_slots=1, max_len=32, max_new=3))
     serve_phase(torch, dev, "olmo-1b", real=real, **sizes)
+    launches["atom_matmul"] = atoms_phase(torch, dev, real)["atom_matmul"]
 
     if rehearse:
         print("chip_smoke: rehearsal finished; nothing was measured",
@@ -600,7 +737,9 @@ def main(argv) -> int:
         entry("decode_attention",
               "src/repro/kernels/decode_attention/kernel.py:75", k1),
         entry("flash_attention",
-              "src/repro/kernels/flash_attention/kernel.py:84", k2)]}),
+              "src/repro/kernels/flash_attention/kernel.py:84", k2),
+        entry("atom_matmul",
+              "src/repro/kernels/atom_matmul/kernel.py:57", k3)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

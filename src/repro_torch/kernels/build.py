@@ -18,25 +18,31 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("decode_attention", "flash_attention")
+KERNELS = ("decode_attention", "flash_attention", "atom_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# dtype codes of the C interface, and the head dims the kernels are built for
+# dtype codes of the C interface, and the head dims the attention kernels are
+# built for
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 HEAD_DIMS = (64, 128)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def check_operand(kernel: str, name: str, t) -> int:
-    """Raise unless the CUDA kernels can take tensor ``t`` (dtype, head dim,
-    layout: 16-byte vector loads along a contiguous last axis).  Returns the
-    dtype code of the C interface."""
+def _dtype_code(kernel: str, name: str, t) -> int:
     code = DTYPE_CODES.get(str(t.dtype))
     if code is None:
         raise TypeError(f"{kernel} kernel takes float32 and bfloat16, "
                         f"not {t.dtype} ({name})")
+    return code
+
+
+def check_attention_operand(kernel: str, name: str, t) -> int:
+    """Raise unless the attention kernels can take tensor ``t`` (dtype, head
+    dim, layout: 16-byte vector loads along a contiguous last axis).  Returns
+    the dtype code of the C interface."""
+    code = _dtype_code(kernel, name, t)
     if t.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{kernel} kernel is built for head_dim in "
                          f"{HEAD_DIMS}, not {t.shape[-1]} ({name})")
@@ -46,6 +52,25 @@ def check_operand(kernel: str, name: str, t) -> int:
                          f"other strides multiples of 8 elements and 16-byte "
                          f"aligned data (strides {t.stride()})")
     return code
+
+
+def check_matmul_operand(kernel: str, name: str, t) -> tuple[int, bool]:
+    """Raise unless the matmul kernel can take the row-major 2-D tensor ``t``
+    (dtype, rank, last stride 1).  Returns the dtype code of the C interface
+    and whether its rows are whole 16-byte chunks (width, row pitch and base
+    address), which the 16-byte load path needs; any other width or pitch
+    takes the kernel's guarded element loads."""
+    code = _dtype_code(kernel, name, t)
+    if t.dim() != 2:
+        raise ValueError(f"{kernel} kernel takes 2-D operands, not "
+                         f"{tuple(t.shape)} ({name})")
+    if t.stride(1) != 1:
+        raise ValueError(f"{kernel} kernel: {name} needs last stride 1 "
+                         f"(strides {t.stride()})")
+    chunk = 16 // t.element_size()
+    vec16 = (t.shape[1] % chunk == 0 and t.stride(0) % chunk == 0
+             and t.data_ptr() % 16 == 0)
+    return code, vec16
 
 
 def build_dir() -> Path:

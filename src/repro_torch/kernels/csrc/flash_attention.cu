@@ -507,6 +507,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int start,
 // tile space with it.
 extern "C" int flash_attention_block_q() { return BQ; }
 
+// Thread blocks (one a tile) of the kernel for (D, dtype) that one SM holds
+// at once, or minus a CUDA error code (-1: a shape the kernel does not take).
+extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
+  const void* k = nullptr;
+  int threads = 0, smem = 0;
+  if (dtype == 1) {
+    threads = TC_THREADS;
+    if (D == 64) {
+      k = (const void*)flash_attn_bf16_kernel<64>;
+      smem = tc_smem_bytes<64>();
+    } else if (D == 128) {
+      k = (const void*)flash_attn_bf16_kernel<128>;
+      smem = tc_smem_bytes<128>();
+    }
+  } else if (dtype == 0) {
+    threads = NTHREADS;
+    if (D == 64) {
+      k = (const void*)flash_attn_kernel<float, 64>;
+      smem = smem_bytes<64>();
+    } else if (D == 128) {
+      k = (const void*)flash_attn_kernel<float, 128>;
+      smem = smem_bytes<128>();
+    }
+  }
+  if (k == nullptr) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, threads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // Tiles [start, start+num_tiles) of the flat tile space (B*Hq) x
 // ceil(Sq/BQ), written in place into o.  q, o: [B,Sq,Hq,D]; k, v:
 // [B,Sk,Hk,D]; strides in elements, last stride 1.  dtype: 0 = float32,

@@ -1,4 +1,4 @@
-// Warp-level tensor-core primitives shared by the attention kernels:
+// Warp-level tensor-core primitives shared by the kernels:
 // ldmatrix loads of 8x8 bf16 tiles from shared memory, the m16n8k16
 // bf16 x bf16 -> f32 multiply-accumulate (mma.sync), and 16-byte asynchronous
 // copies from global to shared memory (cp.async).
@@ -64,6 +64,16 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// close the group of cp.async started since the last commit (a group may be
+// empty), and wait until at most N of this thread's groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace

@@ -58,7 +58,7 @@ def _check_cuda(q, k_cache, v_cache, lens, o) -> int:
         raise TypeError("lens must be a contiguous int32 tensor")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("o", o)):
-        code = build.check_operand("decode attention", name, t)
+        code = build.check_attention_operand("decode attention", name, t)
     return code
 
 

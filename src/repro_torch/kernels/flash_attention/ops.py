@@ -37,6 +37,8 @@ def _library():
         if lib.flash_attention_block_q() != BLOCK_Q:
             raise RuntimeError("csrc/flash_attention.cu and ops.BLOCK_Q "
                                "disagree on the q tile")
+        lib.flash_attention_ctas_per_sm.restype = ctypes.c_int
+        lib.flash_attention_ctas_per_sm.argtypes = [ctypes.c_int] * 2
         fn = lib.flash_attention_atom
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
@@ -49,6 +51,16 @@ def tile_space(q, block_q: int = BLOCK_Q) -> int:
     """Schedulable tiles of a q [B,Sq,Hq,D]."""
     B, Sq, Hq, _ = q.shape
     return B * Hq * -(-Sq // block_q)
+
+
+def ctas_per_sm(head_dim: int, dtype: torch.dtype) -> int:
+    """Thread blocks (one a tile) of the kernel that one SM of the current
+    GPU holds at once (the CUDA occupancy calculator)."""
+    n = _library().flash_attention_ctas_per_sm(
+        head_dim, build.DTYPE_CODES[str(dtype)])
+    if n <= 0:
+        raise RuntimeError(f"flash_attention occupancy query failed ({n})")
+    return n
 
 
 def _check(q, k, v, o):
@@ -72,7 +84,7 @@ def _check_cuda(q, k, v, o, block_q) -> int:
         raise ValueError(f"flash attention kernel is built for "
                          f"block_q={BLOCK_Q}, not {block_q}")
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        code = build.check_operand("flash attention", name, t)
+        code = build.check_attention_operand("flash attention", name, t)
     return code
 
 

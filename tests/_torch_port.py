@@ -3,7 +3,9 @@ package to the port by conversion through numpy, never by seed."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.configs.registry import get_config as jax_get_config
 from repro.models.registry import init_model as jax_init_model
@@ -39,3 +41,21 @@ def make_pair(arch: str, *, dtype: str = "float32", seed: int = 0,
                        ).astype(x.dtype), jparams)
     tparams = from_jax_params(to_numpy(jparams), tcfg, device="cpu")
     return jcfg, jparams, tcfg, tparams
+
+
+def normal_pair(rng, shape, dtype="float32"):
+    """(torch tensor, JAX array) of the same standard-normal numbers from
+    numpy; for bfloat16 the values are rounded once (by torch) and handed to
+    JAX already representable."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":
+        t = torch.from_numpy(x).to(torch.bfloat16)
+        return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    return torch.from_numpy(x), jnp.asarray(x)
+
+
+def as_np(x):
+    """A torch tensor or JAX array as a float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)

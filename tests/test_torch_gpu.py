@@ -16,6 +16,9 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels.atom_matmul import ops as matmul_ops
+from repro_torch.kernels.atom_matmul.ref import matmul_atom_ref, matmul_ref
+from repro_torch.kernels.atoms import schedule, tile_count
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -29,6 +32,9 @@ pytestmark = pytest.mark.gpu
 # float32: same f32 math, other summation order.  bfloat16: one rounding of an
 # O(1) result to bf16 on each side (and of P inside the flash kernel).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# atom matmul, as max abs error over the largest |output| (``chip_smoke.py``
+# states why): f32 sums in another order; bf16 one rounding of each side.
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -83,6 +89,54 @@ def test_flash_kernel_random_shapes(cuda, seed, dtype):
     want = attention_ref(q, k, v, causal=causal)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", range(6))
+def test_matmul_kernel_random_shapes(cuda, seed, dtype):
+    """Ragged shapes, block sizes 128 / 256, column-range views of wider
+    operands, atoms in a random order: values against the plain version,
+    bit equality with one atom, one atom on a sentinel against the plain
+    atom."""
+    rng = np.random.default_rng(200 + seed)
+    M, N, K = (int(x) for x in rng.integers(1, 700, 3))
+    bm, bn = (int(x) for x in rng.choice([128, 256], 2))
+    pad = int(rng.choice([0, 3, 8])) if seed % 2 else 0
+    a = _randn(rng, (M, K + pad), dtype, cuda)[:, pad:]
+    b = _randn(rng, (K, N + pad), dtype, cuda)[:, :N]
+    total = tile_count(M, N, bm, bn)
+    ranges = schedule(total, int(rng.integers(1, 6)))
+    order = tuple(int(i) for i in rng.permutation(len(ranges)))
+    before = matmul_ops.launches
+    got = matmul_ops.atom_matmul(a, b, n_atoms=len(ranges), block_m=bm,
+                                 block_n=bn, order=order)
+    torch.cuda.synchronize()
+    assert matmul_ops.launches == before + len(ranges)
+    want = matmul_ref(a, b)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() \
+        <= MM_TOL[dtype] * scale
+    assert torch.equal(got, matmul_ops.atom_matmul(a, b, block_m=bm,
+                                                   block_n=bn))
+    start, num = ranges[len(ranges) // 2]
+    o = torch.full_like(got, 7.0)
+    r = torch.full_like(got, 7.0)
+    matmul_ops.matmul_atom(a, b, o, start=start, num_tiles=num, block_m=bm,
+                           block_n=bn)
+    matmul_atom_ref(a, b, r, start=start, num_tiles=num, block_m=bm,
+                    block_n=bn)
+    assert torch.equal(o == 7.0, r == 7.0)
+    assert (o.float() - r.float()).abs().max().item() <= MM_TOL[dtype] * scale
+
+
+def test_matmul_kernel_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(64, 32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        matmul_ops.atom_matmul(a, a.T, block_m=64)
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        matmul_ops.atom_matmul(a.half(), a.T.half())
+    with pytest.raises(ValueError, match="last stride 1"):
+        matmul_ops.atom_matmul(a, a.T)      # b = a.T is column-major
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

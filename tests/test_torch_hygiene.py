@@ -1,6 +1,7 @@
 """The port stands alone: no import of JAX or of the JAX package, entry
 points that import with no GPU stack present, and a GPU default that never
 turns into a CPU run by itself."""
+import ast
 import os
 import re
 import subprocess
@@ -21,7 +22,7 @@ IMPORT = re.compile(
 def test_port_has_files():
     assert len(FILES) > 20
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) == [
-        "decode_attention.cu", "flash_attention.cu"]
+        "atom_matmul.cu", "decode_attention.cu", "flash_attention.cu"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -54,6 +55,8 @@ def test_import_leaves_jax_and_triton_out():
         "import repro_torch.kernels.build\n"
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.atom_matmul.ops\n"
+        "import repro_torch.roofline.analysis, repro_torch.launch.atoms\n"
         "import torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton')]\n"
@@ -100,6 +103,7 @@ def test_wrapper_on_a_non_cpu_tensor_never_takes_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises: here,
     with no GPU, a ``meta`` tensor must raise, not fall back."""
     import torch
+    from repro_torch.kernels.atom_matmul.ops import atom_matmul
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     q = torch.empty(1, 8, 4, 64, device="meta")
@@ -109,6 +113,24 @@ def test_wrapper_on_a_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(RuntimeError, match="no path for device"):
         decode_attention(q[:, 0], k, k,
                          torch.ones(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(RuntimeError, match="no path for device"):
+        atom_matmul(q[0, 0], k[0, 0].T)
+
+
+def test_atom_matmul_wrapper_reaches_torch_matmul_only_through_its_ref():
+    """The matmul wrapper launches its kernel or, for a CPU tensor, calls
+    ``ref.py``; no library product stands in for the kernel."""
+    products = {"matmul", "mm", "bmm", "addmm", "einsum", "linear",
+                "tensordot", "dot"}
+    ops = (PORT / "kernels" / "atom_matmul" / "ops.py").read_text()
+    for node in ast.walk(ast.parse(ops)):
+        assert not (isinstance(node, ast.BinOp)
+                    and isinstance(node.op, ast.MatMult))
+        assert not (isinstance(node, ast.Attribute) and node.attr in products)
+    assert ("from repro_torch.kernels.atom_matmul.ref import matmul_atom_ref"
+            in ops)
+    ref = (PORT / "kernels" / "atom_matmul" / "ref.py").read_text()
+    assert "torch.matmul" in ref
 
 
 def test_chip_smoke_fails_without_a_gpu():
