@@ -196,11 +196,21 @@ def _mm_err(torch, got, want, dtype):
     return err, MM_TOL[dtype] * want.float().abs().max().item()
 
 
+def matmul_route(torch, ops, a, b, c, bn):
+    """The kernel path an atom takes (decided in the wrapper before the
+    launch) and its CTA tile."""
+    vec = ops.vec16(a, b, c)
+    route = ("wgmma+tma" if a.dtype == torch.bfloat16 and vec
+             else "cp.async" if vec else "guarded")
+    return route, ops.cta_shape(a.dtype, bn, vec)
+
+
 def check_matmul(torch, dev, gen, *, M, N, K, dtype, bm=128, bn=None,
-                 strided=False):
-    """One atom-matmul case: values, atoms in permuted order bit-equal to
-    n=1, tiles outside an atom untouched and those inside equal to the plain
-    atom's.  Returns the max abs error."""
+                 strided=False, route=None):
+    """One atom-matmul case: the path it takes (``route``, where given),
+    values, atoms in permuted order bit-equal to n=1, tiles outside an atom
+    untouched and those inside equal to the plain atom's.  Returns the max
+    abs error, the path and its CTA tile."""
     from repro_torch.kernels.atom_matmul import ops, ref
     from repro_torch.kernels.atoms import tile_count
     dt = getattr(torch, dtype)
@@ -214,6 +224,9 @@ def check_matmul(torch, dev, gen, *, M, N, K, dtype, bm=128, bn=None,
     what = f"atom_matmul {dtype} M={M} N={N} K={K} block=({bm},{bn})"
     want = ref.matmul_ref(a, b)
     got = ops.atom_matmul(a, b, block_m=bm, block_n=bn)
+    took, cta = matmul_route(torch, ops, a, b, got, bn)
+    if route is not None and took != route:
+        fail(f"{what}: took the {took} path, not {route}")
     err, limit = _mm_err(torch, got, want, dtype)
     if not (math.isfinite(err) and err <= limit):
         fail(f"{what}: max abs err {err} > {limit}")
@@ -239,7 +252,7 @@ def check_matmul(torch, dev, gen, *, M, N, K, dtype, bm=128, bn=None,
             and _mm_err(torch, o[inside], r[inside], dtype)[0] <= limit):
         fail(f"{what}: matmul_atom wrote outside its tiles or differs from "
              f"the plain atom")
-    return err
+    return err, took, cta
 
 
 def matmul_headline(torch, dev, gen, flush, iters, real):
@@ -303,9 +316,16 @@ def decode_headline(torch, dev, gen, flush, iters):
     err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL[("decode", "bfloat16")]:
         fail(f"decode_attention at the serving shape: err {err}")
-    ms = time_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens_t),
-                 iters=iters, flush=flush)
-    host_ms = enqueue_ms(torch, lambda: ops.decode_attention(q, kc, vc, lens_t))
+    # the kernel alone: one atom of every row into an output made once, so
+    # the memset of a fresh output is not timed
+    o = torch.empty_like(q)
+    one = lambda: ops.decode_attention_atom(q, kc, vc, lens_t, o, start=0,
+                                            num_rows=B * Hk)
+    ms = time_ms(torch, one, iters=iters, flush=flush)
+    host_ms = enqueue_ms(torch, one)
+    if not _same(torch, o, got):
+        fail("decode_attention_atom at the serving shape differs from the "
+             "entry point")
     plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, lens_t),
                        iters=iters, flush=flush)
     mask = (torch.arange(S, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
@@ -346,9 +366,17 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16"):
     err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL[("flash", dtype)]:
         fail(f"flash_attention {dtype} at the serving shape: err {err}")
-    ms = time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
-                 iters=iters)
-    host_ms = enqueue_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True))
+    # the kernel alone: one atom of every tile into an output made once, so
+    # the memset of a fresh output is not timed
+    o = torch.empty_like(q)
+    one = lambda: ops.flash_attention_atom(q, k, v, o, start=0,
+                                           num_tiles=ops.tile_space(q),
+                                           causal=True)
+    ms = time_ms(torch, one, iters=iters)
+    host_ms = enqueue_ms(torch, one)
+    if not _same(torch, o, got):
+        fail(f"flash_attention_atom {dtype} at the serving shape differs "
+             f"from the entry point")
     plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True),
                        iters=iters)
     q4, k4, v4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -399,6 +427,17 @@ def kernels_phase(torch, dev, real: bool):
               dict(B=1, Sq=255, Sk=255, Hq=16, Hk=16, D=128, dtype="bfloat16"),
               dict(B=2, Sq=130, Sk=130, Hq=4, Hk=4, D=64, dtype="float32"),
               dict(B=2, Sq=90, Sk=50, Hq=6, Hk=2, D=64, dtype="float32")]
+        # the bf16 wgmma path at both head dims, causal and not, and chunked
+        # prefill (Sq < Sk) with Sk not a multiple of the 64-key block
+        fl += [dict(B=1, Sq=1000, Sk=1000, Hq=32, Hk=8, D=128, dtype="bfloat16",
+                    causal=False),
+               dict(B=2, Sq=200, Sk=200, Hq=8, Hk=2, D=64, dtype="bfloat16"),
+               dict(B=2, Sq=200, Sk=200, Hq=8, Hk=2, D=64, dtype="bfloat16",
+                    causal=False),
+               dict(B=2, Sq=77, Sk=333, Hq=8, Hk=8, D=64, dtype="bfloat16"),
+               dict(B=2, Sq=77, Sk=333, Hq=12, Hk=4, D=128, dtype="bfloat16",
+                    causal=False),
+               dict(B=1, Sq=130, Sk=70, Hq=4, Hk=2, D=128, dtype="bfloat16")]
         # the reference's test shapes (tests/test_kernels.py) at block 128;
         # the llama3-8b projections of a 1000-token prefill and of a
         # 4-slot decode step at the default block 256
@@ -414,6 +453,17 @@ def kernels_phase(torch, dev, real: bool):
                dict(M=300, N=700, K=70, dtype="bfloat16", bm=128, bn=384),
                dict(M=200, N=260, K=96, dtype="float32", bm=256, bn=128,
                     strided=True)]
+        # the bf16 paths: wgmma+TMA with 128 x 256 and 128 x 128 CTA tiles at
+        # ragged M, N, K; a column-range view (row pitch wider than its
+        # width); K = 65, whose rows TMA cannot address
+        mm += [dict(M=1000, N=1000, K=200, dtype="bfloat16", bm=256,
+                    route="wgmma+tma"),
+               dict(M=1000, N=1000, K=200, dtype="bfloat16", bm=128,
+                    route="wgmma+tma"),
+               dict(M=300, N=512, K=256, dtype="bfloat16", bm=128, bn=256,
+                    strided=True, route="wgmma+tma"),
+               dict(M=1000, N=1024, K=65, dtype="bfloat16", bm=256,
+                    route="guarded")]
     else:
         dec = [dict(B=3, Hq=4, Hk=2, D=16, S=40, dtype="float32", lens=[40, 0, 7]),
                dict(B=2, Hq=4, Hk=4, D=16, S=33, dtype="bfloat16", lens=[1, 33], strided=True)]
@@ -421,7 +471,10 @@ def kernels_phase(torch, dev, real: bool):
               dict(B=1, Sq=20, Sk=90, Hq=4, Hk=1, D=16, dtype="bfloat16"),
               dict(B=1, Sq=90, Sk=50, Hq=2, Hk=2, D=16, dtype="float32")]
         mm = [dict(M=257, N=129, K=65, dtype="float32"),
-              dict(M=40, N=300, K=64, dtype="bfloat16", bm=256),
+              dict(M=40, N=300, K=64, dtype="bfloat16", bm=256,
+                   route="guarded"),
+              dict(M=40, N=264, K=72, dtype="bfloat16", bm=128, bn=256,
+                   route="wgmma+tma"),
               dict(M=70, N=300, K=24, dtype="bfloat16", bm=128, bn=256,
                    strided=True)]
     for c in dec:
@@ -433,8 +486,9 @@ def kernels_phase(torch, dev, real: bool):
         cases.append({"kernel": "flash_attention", **c, "max_abs_err": err,
                       "err_limit": TOL[("flash", c["dtype"])]})
     for c in mm:
-        err = check_matmul(torch, dev, gen, **c)
-        cases.append({"kernel": "atom_matmul", **c, "max_abs_err": err,
+        err, took, cta = check_matmul(torch, dev, gen, **c)
+        cases.append({"kernel": "atom_matmul", **c, "path": took,
+                      "cta_tile": cta, "max_abs_err": err,
                       "err_limit": f"{MM_TOL[c['dtype']]} x max|output|"})
     flush = (torch.empty(256 << 20, dtype=torch.uint8, device=dev)
              if real else None)
@@ -707,7 +761,8 @@ def main(argv) -> int:
             build.load(name)
         emit("build", seconds=time.time() - t0,
              libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
-             flags=" ".join(build.NVCC_FLAGS))
+             flags=" ".join(build.NVCC_FLAGS),
+             ptxas={n: build.ptxas_report(n) for n in build.KERNELS})
 
     k1, k2, k3 = kernels_phase(torch, dev, real)
 

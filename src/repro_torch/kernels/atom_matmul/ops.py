@@ -8,9 +8,11 @@ masked, never padded.  ``block_k`` orders the reference's sum and leaves the
 tile space as it is: the CUDA kernel picks its own K step.
 
 For a CUDA tensor an atom launches the hand-written kernel
-(``csrc/atom_matmul.cu``, which takes block sizes that are multiples of its
-128 x 128 CTA tile) or raises.  The plain PyTorch version is taken only for
-tensors that lie on the CPU.
+(``csrc/atom_matmul.cu``, which takes block sizes that are multiples of 128)
+or raises.  The plain PyTorch version is taken only for tensors that lie on
+the CPU.  The kernel covers an atom tile with CTA tiles of the shape
+``cta_shape`` gives and walks them in the order ``cta_tiles`` gives; both
+mirror the C side, which reports its CTA shape at load.
 """
 from __future__ import annotations
 
@@ -24,21 +26,62 @@ from repro_torch.kernels.atom_matmul.ref import matmul_atom_ref
 from repro_torch.kernels.atoms import schedule, tile_count
 
 launches = 0                      # kernel launches made by this module
-CTA_TILE = 128                    # the kernel's thread-block tile, square
+BLOCK_MULTIPLE = 128              # block_m, block_n the kernel takes
 _lib = None
+
+
+def cta_shape(dtype: torch.dtype, block_n: int, vec16: bool) -> tuple[int, int]:
+    """The kernel's CTA tile (rows, columns) for operands of ``dtype`` whose
+    rows are (``vec16``) or are not whole 16-byte chunks: bf16 rows that TMA
+    can address take the wgmma kernel, 128 x 256 where ``block_n`` is a
+    multiple of 256, else 128 x 128; every other path 128 x 128."""
+    if dtype == torch.bfloat16 and vec16 and block_n % 256 == 0:
+        return 128, 256
+    return 128, 128
+
+
+def cta_tiles(M: int, N: int, block_m: int, block_n: int, start: int,
+              num_tiles: int, cta_m: int, cta_n: int) -> list[tuple[int, int]]:
+    """Origins (row, column) of the CTA tiles an atom runs, in the kernel's
+    order: atom tiles ``start .. start+num_tiles-1`` row-major, each cut into
+    ``(block_m // cta_m) x (block_n // cta_n)`` CTA tiles row-major, those
+    wholly outside C left out.  The persistent kernel's CTA ``x`` runs the
+    ``x``-th, ``x + grid``-th, ... of them."""
+    nn = -(-N // block_n)
+    sub_n = block_n // cta_n
+    sub = (block_m // cta_m) * sub_n
+    out = []
+    for c in range(num_tiles * sub):
+        t, s = start + c // sub, c % sub
+        row = (t // nn) * block_m + (s // sub_n) * cta_m
+        col = (t % nn) * block_n + (s % sub_n) * cta_n
+        if row < M and col < N:
+            out.append((row, col))
+    return out
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = build.load("atom_matmul")
-        lib.atom_matmul_cta_tile.restype = ctypes.c_int
-        lib.atom_matmul_cta_tile.argtypes = []
-        if lib.atom_matmul_cta_tile() != CTA_TILE:
-            raise RuntimeError("csrc/atom_matmul.cu and ops.CTA_TILE "
-                               "disagree on the CTA tile")
+        lib.atom_matmul_cta_shape.restype = ctypes.c_int
+        lib.atom_matmul_cta_shape.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        for dtype in (torch.float32, torch.bfloat16):
+            for block_n in (128, 256, 384, 512):
+                for vec16 in (False, True):
+                    m, n = ctypes.c_int(), ctypes.c_int()
+                    err = lib.atom_matmul_cta_shape(
+                        build.DTYPE_CODES[str(dtype)], block_n, int(vec16),
+                        ctypes.byref(m), ctypes.byref(n))
+                    if err or (m.value, n.value) != cta_shape(dtype, block_n,
+                                                              vec16):
+                        raise RuntimeError(
+                            "csrc/atom_matmul.cu and ops.cta_shape disagree "
+                            f"on the CTA tile ({dtype}, block_n={block_n}, "
+                            f"vec16={vec16})")
         lib.atom_matmul_ctas_per_sm.restype = ctypes.c_int
-        lib.atom_matmul_ctas_per_sm.argtypes = [ctypes.c_int]
+        lib.atom_matmul_ctas_per_sm.argtypes = [ctypes.c_int] * 2
         fn = lib.atom_matmul_atom
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -69,21 +112,31 @@ def _check(a, b, c, block_m, block_n, block_k):
 
 
 def _check_cuda(a, b, c, block_m, block_n) -> tuple[int, bool]:
-    if block_m % CTA_TILE or block_n % CTA_TILE:
+    if block_m % BLOCK_MULTIPLE or block_n % BLOCK_MULTIPLE:
         raise ValueError(f"atom matmul kernel takes block_m, block_n that "
-                         f"are multiples of {CTA_TILE}, not "
+                         f"are multiples of {BLOCK_MULTIPLE}, not "
                          f"({block_m}, {block_n})")
-    vec16 = True
-    for name, t in (("a", a), ("b", b), ("c", c)):
-        code, ok = build.check_matmul_operand("atom matmul", name, t)
-        vec16 = vec16 and ok
-    return code, vec16
+    code = build.check_matmul_operand("atom matmul", "a", a)[0]
+    return code, vec16(a, b, c)
 
 
-def ctas_per_sm(dtype: torch.dtype) -> int:
-    """Thread blocks of the kernel's 16-byte load path that one SM of the
-    current GPU holds at once (the CUDA occupancy calculator)."""
-    n = _library().atom_matmul_ctas_per_sm(build.DTYPE_CODES[str(dtype)])
+def vec16(a, b, c) -> bool:
+    """Whether the rows of every operand are whole 16-byte chunks (width,
+    row pitch and base address): the routing decision, made before the
+    launch.  Then bf16 takes the wgmma kernel fed by TMA (which needs just
+    that), f32 the 16-byte ``cp.async`` loads; otherwise both take guarded
+    element loads.  Raises for an operand the kernel does not take."""
+    return all(build.check_matmul_operand("atom matmul", name, t)[1]
+               for name, t in (("a", a), ("b", b), ("c", c)))
+
+
+def ctas_per_sm(dtype: torch.dtype, block_n: int = 256) -> int:
+    """CTAs of the kernel's path for ``dtype`` and ``block_n`` on operands
+    whose rows are whole 16-byte chunks that one SM of the current GPU holds
+    at once (the CUDA occupancy calculator; 1 for the bf16 wgmma kernel,
+    whose ring of stages takes most of the SM's shared memory)."""
+    n = _library().atom_matmul_ctas_per_sm(build.DTYPE_CODES[str(dtype)],
+                                           block_n)
     if n <= 0:
         raise RuntimeError(f"atom_matmul occupancy query failed ({n})")
     return n

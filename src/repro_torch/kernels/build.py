@@ -6,13 +6,17 @@ Libraries are built at first use and cached under the build directory
 (``$REPRO_TORCH_BUILD_DIR``, else ``build/kernels`` at the repository root),
 keyed by a hash of the source, the shared headers and the flags.  ``build_all`` starts one
 ``nvcc`` per source at the same time.  A failed build raises with the
-compiler's output; nothing here falls back to another implementation.
+compiler's output; nothing here falls back to another implementation.  The
+compiler's output of a successful build is kept beside the library
+(``.log``): ``ptxas_report`` reads each kernel's registers, spills and
+``ptxas`` warnings from it (C7508: ``setmaxnreg`` ignored).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("decode_attention", "flash_attention", "atom_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface, and the head dims the attention kernels are
 # built for
@@ -121,6 +125,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -150,3 +155,43 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all((name,))[name]
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel symbol whose name ends in
+    ``_kernel`` (its integer and bool template arguments); else as it is."""
+    end = mangled.find("_kernel")
+    if end < 0:
+        return mangled
+    head = mangled[:end + len("_kernel")]
+    for k in range(len(head) - 1, 0, -1):   # prefixed by its length
+        name = head[k:]
+        if not name[0].isdigit() and head[:k].endswith(str(len(name))):
+            args = re.findall(r"L[ib](\d+)E", mangled[len(head):])
+            return f"{name}<{','.join(args)}>" if args else name
+    return mangled
+
+
+def ptxas_report(name: str) -> dict:
+    """What ``ptxas -v`` said of the built ``csrc/<name>.cu``: for each
+    kernel (mangled name shortened to its readable part) its registers and
+    bytes of spill stores and loads, and every warning line."""
+    log = library_path(name).with_suffix(".log").read_text()
+    kernels, cur = {}, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            cur = _kernel_name(m.group(1))
+            kernels[cur] = {}
+        elif cur and (m := _SPILL.search(line)):
+            kernels[cur]["spill_stores"] = int(m.group(1))
+            kernels[cur]["spill_loads"] = int(m.group(2))
+        elif cur and (m := _REGS.search(line)):
+            kernels[cur]["registers"] = int(m.group(1))
+    warnings = [ln.strip() for ln in log.splitlines()
+                if "warning" in ln.lower()]
+    return {"kernels": kernels, "warnings": warnings}

@@ -16,35 +16,47 @@
 // 3.35 TB/s.  For a few rows (decode, M = 4) the bytes of B.
 //
 // What the design does about it:
-//   * an atom tile is covered by (block_m/128) * (block_n/128) thread blocks
-//     of a fixed 128 x 128 CTA tile (a 256 x 256 f32 accumulator would fill
-//     the SM's whole register file).  grid = (num_tiles * sub_tiles,); block
-//     x runs sub-tile x % sub_tiles of atom tile start + x / sub_tiles.  So
-//     the tile space, and what a (start, num_tiles) covers, is the TPU
-//     kernel's for every block_m, block_n that is a multiple of 128;
-//   * the TPU's sequential K grid axis is a loop inside the block, with the
-//     accumulator in registers for the whole loop.  block_k only orders the
-//     TPU's sum; this kernel steps K by 32 (bf16) or 16 (f32);
-//   * bfloat16: mma.sync m16n8k16 with f32 accumulate, 8 warps each owning a
-//     64 x 32 piece of the tile.  A and B tiles go through a 3-stage ring in
-//     shared memory filled by cp.async, so the loads of step k+2 overlap the
-//     products of step k.  Rows are padded by 16 bytes, which keeps ldmatrix
-//     free of bank conflicts; B is [K,N] row-major and is read with
-//     ldmatrix.trans;
-//   * float32: full f32 FMA (no TF32), each thread an 8 x 8 piece of the
-//     tile, through the same 3-stage ring;
-//   * ragged M, N, K are masked at their true sizes: out-of-range operands are
-//     zero-filled in shared memory and out-of-range outputs are not stored,
-//     so no padded copy is made.  A row that is not a whole number of 16-byte
-//     chunks (K = 65, N = 129, a pitch not a multiple of 8 bf16 / 4 f32) takes
-//     a second instantiation of the same kernel whose loads are guarded
-//     element loads instead of 16-byte cp.async.
-// What holds it back: warp-level mma.sync does not reach Hopper's full
-// tensor-core rate, which needs warpgroup wgmma fed by TMA and a persistent
-// schedule over the tiles; that is a later step.
+//   * the atom tile is covered by CTA tiles of a fixed shape; one launch runs
+//     the atom's CTA tiles, numbered c = 0 .. num_tiles * sub_tiles - 1: atom
+//     tile start + c / sub_tiles, sub-tile c % sub_tiles (row-major within the
+//     atom tile).  So the tile space, and what a (start, num_tiles) covers, is
+//     the TPU kernel's for every block_m, block_n that is a multiple of 128;
+//   * the TPU's sequential K grid axis is a loop inside the CTA, with the
+//     accumulator in registers for the whole loop, in one fixed order per
+//     output tile (no split-K): atoms over any partition are bit-equal to one
+//     atom.  block_k only orders the TPU's sum;
+//   * bfloat16 whose rows TMA can address (width, pitch and base whole
+//     16-byte chunks): Hopper's warpgroup multiplies (wgmma, f32 accumulate)
+//     fed by TMA.  CTA tile 128 x 256 x 64 where block_n % 256 == 0, else
+//     128 x 128 x 64.  384 threads: one producer warpgroup, of which one
+//     thread issues every TMA load (its registers given up to the others with
+//     setmaxnreg), and two consumer warpgroups, each owning 64 rows of the
+//     tile as one m64n256k16 (m64n128k16) wgmma chain.  A ring of 4 stages in
+//     128-byte-swizzled shared memory, with full and empty mbarriers, keeps
+//     the loads of the next three K steps in flight under the products.  A
+//     [M,K] is K-major; B [K,N] is read as it lies (MN-major, the transpose
+//     bit set), in boxes of 64 columns.  The schedule is persistent: grid =
+//     min(CTA tiles, SMs x CTAs an SM), CTA x runs CTA tiles x, x + gridDim.x,
+//     ..., so the next tile's loads overlap this tile's epilogue.  TMA
+//     zero-fills what lies outside A and B, so ragged M, N, K need no mask
+//     in the main loop; the epilogue stores bf16 pairs from registers, masked
+//     at M and N;
+//   * bfloat16 rows that TMA cannot address (K = 65, N = 129, a pitch not a
+//     multiple of 8): 128 x 128 CTA tiles, one CTA each, mma.sync m16n8k16
+//     with guarded element loads through a 3-stage ring;
+//   * float32: full f32 FMA (no TF32: wgmma has no f32 mode), 128 x 128 CTA
+//     tiles, each thread an 8 x 8 piece, through a 3-stage cp.async ring
+//     (guarded element loads where rows are not whole 16-byte chunks).
+// What holds it back: the K loop of a CTA tile is not split (the atom
+// contract), so a grid of few CTA tiles leaves SMs idle, and the last wave of
+// a large one is partial; consumer warpgroups wait for their own products
+// before the epilogue, whose stores from registers use half of each 32-byte
+// sector.  B is re-read from device memory once per row of atom tiles that
+// the L2 cannot hold.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -62,14 +74,15 @@ struct Args {
   int start, sub_tiles, sub_n, nn, block_m, block_n;
 };
 
-// origin of this block's 128 x 128 piece of C; false if it lies wholly
-// outside C (the ragged edge of an atom tile larger than 128)
-__device__ __forceinline__ bool cta_origin(const Args& p, int& row0,
+// origin of the atom's CTA tile c (of shape CM x CN) in C; false if it lies
+// wholly outside C (the ragged edge of an atom tile larger than the CTA tile)
+template <int CM, int CN>
+__device__ __forceinline__ bool cta_origin(const Args& p, int c, int& row0,
                                            int& col0) {
-  const int t = p.start + (int)(blockIdx.x / p.sub_tiles);
-  const int s = (int)(blockIdx.x % p.sub_tiles);
-  row0 = (t / p.nn) * p.block_m + (s / p.sub_n) * TM;
-  col0 = (t % p.nn) * p.block_n + (s % p.sub_n) * TN;
+  const int t = p.start + c / p.sub_tiles;
+  const int s = c % p.sub_tiles;
+  row0 = (t / p.nn) * p.block_m + (s / p.sub_n) * CM;
+  col0 = (t % p.nn) * p.block_n + (s % p.sub_n) * CN;
   return row0 < p.M && col0 < p.N;
 }
 
@@ -151,7 +164,7 @@ constexpr int SMEM16 = STAGES * (SA16 + SB16) * (int)sizeof(__nv_bfloat16);
 template <bool VEC>
 __global__ void __launch_bounds__(NTHREADS, 2) matmul_bf16_kernel(Args p) {
   int row0, col0;
-  if (!cta_origin(p, row0, col0)) return;
+  if (!cta_origin<TM, TN>(p, (int)blockIdx.x, row0, col0)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sB = sA + STAGES * SA16;
@@ -236,7 +249,7 @@ constexpr int SMEM32 = STAGES * (SA32 + SB32) * (int)sizeof(float);
 template <bool VEC>
 __global__ void __launch_bounds__(NTHREADS, 2) matmul_f32_kernel(Args p) {
   int row0, col0;
-  if (!cta_origin(p, row0, col0)) return;
+  if (!cta_origin<TM, TN>(p, (int)blockIdx.x, row0, col0)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sA = reinterpret_cast<float*>(smem_raw);
   float* sB = sA + STAGES * SA32;
@@ -303,17 +316,197 @@ __global__ void __launch_bounds__(NTHREADS, 2) matmul_f32_kernel(Args p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 rows that TMA can address: wgmma fed by TMA, warp-specialised,
+// persistent over the atom's CTA tiles
+// ---------------------------------------------------------------------------
+
+constexpr int WM = 128, WK = 64;   // CTA tile rows, K step
+constexpr int WSTAGES = 4;
+constexpr int WTHREADS = 384;      // producer warpgroup + 2 consumer warpgroups
+
+template <int BN>
+struct WTile {
+  static constexpr int A_BYTES = WM * WK * 2;   // 16 KB: 128 rows of 128 B
+  static constexpr int B_BYTES = WK * BN * 2;   // BN/64 boxes of 64 rows x 128 B
+  static constexpr int BOX_B = WK * 128;        // one 64-column box of B
+  // ring + barriers + room to align the ring to 1024 bytes
+  static constexpr int SMEM =
+      1024 + WSTAGES * (A_BYTES + B_BYTES) + 2 * WSTAGES * 8;
+};
+
+template <int BN>
+__device__ __forceinline__ void mma_step(float (&acc)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BN == 256)
+    wgmma_m64n256k16_ss<1>(acc, da, db, scale_d);
+  else
+    wgmma_m64n128k16_ss<1>(acc, da, db, scale_d);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(WTHREADS, 1)
+matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b, Args p,
+                         int n_ctas) {
+  using T = WTile<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sA = ring;                          // [stage][128][64]
+  unsigned char* sB = ring + WSTAGES * T::A_BYTES;   // [stage][box][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + WSTAGES * T::B_BYTES);
+  uint64_t* empty = full + WSTAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(&full[s], 1);    // the producer's expect_tx
+      mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int nk = (p.K + WK - 1) / WK;
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = blockIdx.x; c < n_ctas; c += gridDim.x) {
+        int row0, col0;
+        if (!cta_origin<WM, BN>(p, c, row0, col0)) continue;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], T::A_BYTES + T::B_BYTES);
+          tma_load_2d(sA + stage * T::A_BYTES, &map_a, &full[stage], kt * WK,
+                      row0);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(sB + stage * T::B_BYTES + j * T::BOX_B, &map_b,
+                        &full[stage], col0 + 64 * j, kt * WK);
+          if (++stage == WSTAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: rows [64 wg, 64 wg + 64) of each CTA tile
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    auto* C = static_cast<__nv_bfloat16*>(p.c);
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int c = blockIdx.x; c < n_ctas; c += gridDim.x) {
+      int row0, col0;
+      if (!cta_origin<WM, BN>(p, c, row0, col0)) continue;
+      int prev = -1;   // the stage whose products may still be running
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* a = sA + stage * T::A_BYTES + wg * 64 * 128;
+        const unsigned char* b = sB + stage * T::B_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < WK / 16; ++ks)
+          mma_step<BN>(acc, wgmma_desc(a + 32 * ks, 16, 1024),
+                       wgmma_desc(b + 2048 * ks, T::BOX_B, 1024),
+                       (kt | ks) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();   // the previous step's products are done ...
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);   // ... free it
+        prev = stage;
+        if (++stage == WSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      const int r = row0 + wg * 64 + warp * 16 + (lane >> 2);
+      const int c0 = col0 + 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        store2<true>(C, p.ldc, r, c0 + 8 * i, p.M, p.N, acc[4 * i],
+                     acc[4 * i + 1]);
+        store2<true>(C, p.ldc, r + 8, c0 + 8 * i, p.M, p.N, acc[4 * i + 2],
+                     acc[4 * i + 3]);
+      }
+    }
+  }
+}
+
+// CTAs of the wgmma kernel that one SM holds (cached), or minus a CUDA
+// error code
+template <int BN>
+int wgmma_ctas_per_sm() {
+  static int n = [] {
+    auto k = matmul_bf16_wgmma_kernel<BN>;
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, WTile<BN>::SMEM);
+    if (err != cudaSuccess) return -(int)err;
+    int m = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&m, k, WTHREADS,
+                                                        WTile<BN>::SMEM);
+    return err == cudaSuccess ? m : -(int)err;
+  }();
+  return n;
+}
+
+template <int BN>
+int launch_wgmma(Args p, int num_tiles, cudaStream_t stream) {
+  p.sub_n = p.block_n / BN;
+  p.sub_tiles = (p.block_m / WM) * p.sub_n;
+  const long long n_ctas = (long long)num_tiles * p.sub_tiles;
+  if (n_ctas > 0x7fffffffLL) return -1;
+  CUtensorMap map_a, map_b;
+  {   // A [M, K]: boxes of 64 (K) x 128 rows
+    const uint64_t dims[2] = {(uint64_t)p.K, (uint64_t)p.M};
+    const uint64_t strides[1] = {(uint64_t)p.lda * 2};
+    const uint32_t box[2] = {WK, WM};
+    if (int e = encode_bf16_map(&map_a, p.a, 2, dims, strides, box)) return e;
+  }
+  {   // B [K, N]: boxes of 64 columns x 64 rows (K), as B lies
+    const uint64_t dims[2] = {(uint64_t)p.N, (uint64_t)p.K};
+    const uint64_t strides[1] = {(uint64_t)p.ldb * 2};
+    const uint32_t box[2] = {64, WK};
+    if (int e = encode_bf16_map(&map_b, p.b, 2, dims, strides, box)) return e;
+  }
+  const int per_sm = wgmma_ctas_per_sm<BN>();
+  if (per_sm <= 0) return per_sm < 0 ? -per_sm : -1;
+  const int sms = sm_count();
+  if (sms <= 0) return -1;
+  const int grid = (int)(n_ctas < (long long)sms * per_sm ? n_ctas
+                                                          : sms * per_sm);
+  matmul_bf16_wgmma_kernel<BN><<<grid, WTHREADS, WTile<BN>::SMEM, stream>>>(
+      map_a, map_b, p, (int)n_ctas);
+  return (int)cudaGetLastError();
+}
+
+// the CTA tile of each path: the wgmma path (bf16 rows that TMA can
+// address) is 128 x 256 where block_n % 256 == 0, else 128 x 128; the
+// others 128 x 128.  (K = 0 has no K step for TMA to load: it takes the
+// guarded kernel, which writes the zeros.)
+bool wgmma_path(int dtype, int vec) { return dtype == 1 && vec; }
+int cta_n(int dtype, int block_n, int vec) {
+  return wgmma_path(dtype, vec) && block_n % 256 == 0 ? 256 : TN;
+}
+
 using Kernel = void (*)(Args);
 
-// the kernel for a dtype code and load path, with its shared memory
+// the one-CTA-a-tile kernel for a dtype code and load path, with its shared
+// memory
 bool pick(int dtype, int vec, Kernel& k, int& smem) {
   if (dtype == 0) {
     k = vec ? matmul_f32_kernel<true> : matmul_f32_kernel<false>;
     smem = SMEM32;
     return true;
   }
-  if (dtype == 1) {
-    k = vec ? matmul_bf16_kernel<true> : matmul_bf16_kernel<false>;
+  if (dtype == 1) {   // rows TMA cannot address, or K = 0
+    k = matmul_bf16_kernel<false>;
     smem = SMEM16;
     return true;
   }
@@ -322,13 +515,23 @@ bool pick(int dtype, int vec, Kernel& k, int& smem) {
 
 }  // namespace
 
-// The CTA tile this kernel was compiled for; the wrapper checks block sizes
-// against it.
-extern "C" int atom_matmul_cta_tile() { return TM; }
+// The CTA tile (*m x *n) of the path for a dtype code, block_n and whether
+// every operand's rows are whole 16-byte chunks; the wrapper mirrors it.
+// Returns 0, or -1 for a dtype the kernel does not take.
+extern "C" int atom_matmul_cta_shape(int dtype, int block_n, int vec, int* m,
+                                     int* n) {
+  if (dtype != 0 && dtype != 1) return -1;
+  *m = TM;
+  *n = cta_n(dtype, block_n, vec);
+  return 0;
+}
 
-// Thread blocks of the kernel's 16-byte load path for a dtype that one SM
-// holds at once, or minus a CUDA error code.
-extern "C" int atom_matmul_ctas_per_sm(int dtype) {
+// CTAs of the path for (dtype, block_n) on operands whose rows are whole
+// 16-byte chunks that one SM holds at once, or minus a CUDA error code.
+extern "C" int atom_matmul_ctas_per_sm(int dtype, int block_n) {
+  if (wgmma_path(dtype, 1))
+    return block_n % 256 == 0 ? wgmma_ctas_per_sm<256>()
+                              : wgmma_ctas_per_sm<128>();
   Kernel k;
   int smem;
   if (!pick(dtype, 1, k, smem)) return -1;
@@ -344,9 +547,9 @@ extern "C" int atom_matmul_ctas_per_sm(int dtype) {
 // space of C[M,N] = A[M,K] @ B[K,N], written in place into c.  Row-major
 // operands with row pitches lda, ldb, ldc in elements.  dtype: 0 = float32,
 // 1 = bfloat16.  vec: every operand's rows are whole 16-byte chunks (width,
-// pitch and base), so the 16-byte cp.async path applies.  Returns the CUDA
-// error code of the launch (0 = success), or -1 for what the kernel does not
-// take.
+// pitch and base), so TMA (bf16) or 16-byte cp.async (f32) applies.
+// Returns the CUDA error code of the launch (0 = success), -1 for what the
+// kernel does not take, or -2 if a tensor map cannot be encoded.
 extern "C" int atom_matmul_atom(const void* a, const void* b, void* c, int M,
                                 int N, int K, long long lda, long long ldb,
                                 long long ldc, int start, int num_tiles,
@@ -354,11 +557,14 @@ extern "C" int atom_matmul_atom(const void* a, const void* b, void* c, int M,
                                 void* stream) {
   if (num_tiles <= 0) return 0;
   if (block_m <= 0 || block_n <= 0 || block_m % TM || block_n % TN) return -1;
-  const int sub_n = block_n / TN;
-  const Args p{a,     b,     c,   M,     N,
-               K,     lda,   ldb, ldc,   start,
-               (block_m / TM) * sub_n, sub_n, (N + block_n - 1) / block_n,
-               block_m, block_n};
+  Args p{a,     b,     c,     M,   N,   K,  lda, ldb, ldc, start,
+         0,     0,     (N + block_n - 1) / block_n,     block_m, block_n};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma_path(dtype, vec) && K > 0)
+    return block_n % 256 == 0 ? launch_wgmma<256>(p, num_tiles, s)
+                              : launch_wgmma<128>(p, num_tiles, s);
+  p.sub_n = block_n / TN;
+  p.sub_tiles = (block_m / TM) * p.sub_n;
   const long long blocks = (long long)num_tiles * p.sub_tiles;
   if (blocks > 0x7fffffffLL) return -1;
   Kernel k;
@@ -367,6 +573,6 @@ extern "C" int atom_matmul_atom(const void* a, const void* b, void* c, int M,
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  k<<<(unsigned)blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  k<<<(unsigned)blocks, NTHREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
 }

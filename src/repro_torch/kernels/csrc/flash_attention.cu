@@ -24,29 +24,38 @@
 //     ragged edges (Sq, Sk not multiples of the tile) are masked: no padded or
 //     transposed copy is made.  The causal mask is aligned to the END of the
 //     keys (kpos <= Sk - Sq + qrow), which covers chunked prefill (Sq < Sk);
-//   * bfloat16 inputs run both products on the tensor cores (mma.sync
-//     m16n8k16, f32 accumulate): 4 warps a tile, each owning 16 query rows
-//     whose Q fragments stay in registers; K and V blocks of 64 keys are
-//     staged in shared memory as bf16 and read with ldmatrix; scores, the
-//     online-softmax state and the output accumulator never leave registers
-//     (the accumulator layout of Q K^T is the A-operand layout of P V).  52 KB
-//     of shared memory a block at head_dim 128, so several blocks share an SM
-//     and one block's loads overlap another's arithmetic;
-//   * float32 inputs keep full f32 products on the CUDA cores: the Q tile
-//     (pre-scaled) and each K and V block of 32 keys are staged in shared
-//     memory, scores and the accumulator live in registers, P goes through
-//     shared memory once for the second product; 75 KB a block, two blocks
-//     an SM; shared rows are padded so the 16-byte reads of both products are
-//     free of bank conflicts;
+//   * bfloat16 inputs run both products on Hopper's warpgroup multiplies
+//     (wgmma, f32 accumulate) fed by TMA.  One consumer warpgroup owns the
+//     tile's 64 query rows; one producer warp issues every TMA load.  q, k, v
+//     are 4-D tensor maps {D, H, S, B} over the model's layout, boxes of 64
+//     head-dim values (128 bytes, 128-byte swizzle) x 1 head x 64 rows; TMA
+//     zero-fills rows past Sq or Sk.  Q is loaded once; K and V blocks of 64
+//     keys go through a 2-stage ring with full and empty mbarriers, so block
+//     j+1 loads while block j computes.  S = Q K^T is m64n64k16 from shared
+//     memory; P never leaves registers (the accumulator layout of S is the A
+//     fragment of O += P V, m64nDk16 with V MN-major, the transpose bit set).
+//     83 KB of shared memory at head_dim 128, so two CTAs share an SM and
+//     one's softmax overlaps the other's products.  Within an atom, CTA x
+//     runs tile start + num_tiles - 1 - x: a head's longest causal tiles
+//     start first;
+//   * float32 inputs keep full f32 products on the CUDA cores (wgmma has no
+//     f32 mode): the Q tile (pre-scaled) and each K and V block of 32 keys
+//     are staged in shared memory, scores and the accumulator live in
+//     registers, P goes through shared memory once for the second product;
+//     75 KB a block, two blocks an SM; shared rows are padded so the 16-byte
+//     reads of both products are free of bank conflicts;
 //   * a row with no unmasked key gives zeros (l == 0 -> 1), never NaN.
-// What holds it back: the bf16 path uses warp-level mma.sync with synchronous
-// global->shared copies; Hopper's full tensor-core rate needs warpgroup
-// multiplies (wgmma) fed by TMA through a ring of tiles, which is the next
-// step.  The f32 path is limited by its shared-memory reads, well below the
-// 67 TFLOP/s f32 peak of an H100 SXM.
+// What holds it back: one warpgroup a CTA, so the softmax of a block and its
+// products are serialised within a CTA (the two CTAs of an SM overlap them;
+// issuing S of block j+1 before P V of block j, as FlashAttention-3 does,
+// measured slower here); BK = 64 keeps two CTAs an SM but halves the work a barrier round
+// trip carries; the output is stored from registers as bf16 pairs, half of
+// each 32-byte sector.  The f32 path is limited by its shared-memory reads,
+// well below the 67 TFLOP/s f32 peak of an H100 SXM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -60,22 +69,8 @@ constexpr int PP = BK + 4;  // padded row of the P tile
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 t = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&t.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&t.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 t;
-  t.x = *reinterpret_cast<unsigned int*>(&a);
-  t.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = t;
 }
 
 struct Strides {
@@ -258,121 +253,143 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: both products on the tensor cores (mma.sync m16n8k16, f32
-// accumulate).  128 threads: warp w owns query rows [16w, 16w+16) of the
-// tile.  Q fragments stay in registers for the whole KV loop; K and V blocks
-// of TBK keys are staged in shared memory as bf16 (rows padded by 16 bytes,
-// which keeps ldmatrix free of bank conflicts); S and P never leave
-// registers: the accumulator layout of S = Q K^T is the A-operand layout of
-// P V, two 8-key tiles at a time.  Row sums are kept per thread and reduced
-// over the four lanes of a row once, at the end.
+// bfloat16: both products on wgmma, K and V blocks fed by TMA.  160 threads:
+// one consumer warpgroup owns the tile's 64 query rows (warp w rows
+// [16w, 16w+16)); warp 4 is the producer, one thread of which issues every
+// TMA load.  Q is loaded once; K and V blocks of TBK keys go through a ring
+// of 2 stages with full and empty mbarriers, so block j+1 loads while block
+// j computes.  S = Q K^T is m64n64k16 with both operands in shared memory
+// (K-major); P stays in registers: the accumulator layout of S is the A
+// fragment of O += P V (m64nDk16, A from registers; V is MN-major, the
+// transpose bit set).  Row sums are kept per thread and reduced over the
+// four lanes of a row once, at the end.
 // ---------------------------------------------------------------------------
 
-constexpr int TC_THREADS = 128;
-constexpr int TBK = 64;   // keys of a KV block on the tensor-core path
+constexpr int TC_THREADS = 160;   // consumer warpgroup + producer warp
+constexpr int TBK = 64;           // keys of a KV block on the wgmma path
+constexpr int TSTAGES = 2;
 
 template <int D>
-constexpr int tc_smem_bytes() {
-  return (int)sizeof(__nv_bfloat16) * (BQ + 2 * TBK) * (D + 8);
+struct TcTile {
+  static constexpr int BOX_Q = BQ * 128;     // 64 rows of 64 bf16
+  static constexpr int BOX_KV = TBK * 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = TBK * D * 2;
+  // Q, the K and V rings, barriers, and room to align Q to 1024 bytes
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * TSTAGES * KV_BYTES +
+                              (2 * TSTAGES + 1) * 8;
+};
+
+template <int D>
+__device__ __forceinline__ void pv_step(float (&acc)[D / 2],
+                                        const unsigned (&a)[4], uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_m64n128k16_rs<1>(acc, a, db, 1);
+  else
+    wgmma_m64n64k16_rs<1>(acc, a, db, 1);
 }
 
-// rows [row0, row0+rows) of a [*, D] bf16 operand -> shared memory, zero
-// beyond `limit`; 16 bytes a thread
 template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row_stride, int row0,
-                                           int rows, int limit) {
-  constexpr int LD = D + 8;
-  for (int idx = threadIdx.x; idx < rows * (D / 8); idx += TC_THREADS) {
-    const int row = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < limit)
-      x = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + row) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + row * LD + c) = x;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int start, int n_qblocks,
-                       int Hq, int G, int Sq, int Sk, int causal, Strides st,
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       __nv_bfloat16* __restrict__ o, int start, int num_tiles,
+                       int n_qblocks, int Hq, int G, int Sq, int Sk,
+                       int causal, long long o_b, long long o_s, long long o_h,
                        float scale_log2e) {
-  constexpr int LD = D + 8;      // padded row, in elements
-  constexpr int KS = D / 16;     // k-steps of Q K^T
-  constexpr int NT = TBK / 8;    // 8-key tiles of a KV block
-  constexpr int DT = D / 8;      // 8-column tiles of the output
+  using T = TcTile<D>;
+  constexpr int NB = D / 64;       // 64-wide boxes of the head dim
+  constexpr int KS = D / 16;       // k-steps of Q K^T
+  constexpr int NT = TBK / 8;      // 8-key column tiles of S
+  constexpr int DT = D / 8;        // 8-column tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
-  __nv_bfloat16* sK = sQ + BQ * LD;                                // [TBK][LD]
-  __nv_bfloat16* sV = sK + TBK * LD;                               // [TBK][LD]
+  unsigned char* sQ =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + T::Q_BYTES;                 // [stage][box][TBK][64]
+  unsigned char* sV = sK + TSTAGES * T::KV_BYTES;      // [stage][box][TBK][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + TSTAGES * T::KV_BYTES);
+  uint64_t* empty = full + TSTAGES;
+  uint64_t* qbar = empty + TSTAGES;
 
-  const int t = start + blockIdx.x;
+  // longest causal tiles first: CTA x runs the atom's tiles from the end
+  const int t = start + num_tiles - 1 - (int)blockIdx.x;
   const int bh = t / n_qblocks, qi = t % n_qblocks;
   const int b = bh / Hq, h = bh % Hq, hk = h / G;
   const int q0 = qi * BQ;
   const int off = Sk - Sq;        // qpos = off + query row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;   // row within 8, column pair
-
-  const __nv_bfloat16* qb = q + b * st.q_b + h * st.q_h;
-  const __nv_bfloat16* kb = k + b * st.k_b + hk * st.k_h;
-  const __nv_bfloat16* vb = v + b * st.v_b + hk * st.v_h;
-
-  stage_bf16<D>(sQ, qb, st.q_s, q0, BQ, Sq);
-  __syncthreads();
-
-  // this warp's 16 x D slice of Q as A fragments
-  unsigned qf[KS][4];
-  {
-    const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int col = (lane >> 4) * 8;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      ldmatrix_x4(qf[ks], sQ + row * LD + ks * 16 + col);
-  }
-
-  // rows g and g+8 of the warp's slice
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
-  }
-
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, off + q_last + 1) : Sk;
-  const int row_lo = off + q0 + warp * 16;   // qpos of the warp's first row
+  const int nblocks = k_end > 0 ? (k_end + TBK - 1) / TBK : 0;
 
-  for (int k0 = 0; k0 < k_end; k0 += TBK) {
-    __syncthreads();   // the previous block's sK, sV are no longer read
-    stage_bf16<D>(sK, kb, st.k_s, k0, TBK, Sk);
-    stage_bf16<D>(sV, vb, st.v_s, k0, TBK, Sk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x TBK keys
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TSTAGES; ++s) {
+      mbar_init(&full[s], 1);    // the producer's expect_tx
+      mbar_init(&empty[s], 4);   // one arrival a consumer warp
     }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(qbar, T::Q_BYTES);
 #pragma unroll
-    for (int ks = 0; ks < KS; ks += 2) {
+      for (int j = 0; j < NB; ++j)
+        tma_load_4d(sQ + j * T::BOX_Q, &map_q, qbar, 64 * j, h, q0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int blk = 0; blk < nblocks; ++blk) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * T::KV_BYTES);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        unsigned kf[4];   // (b0, b1) of k-step ks, then of ks+1
-        ldmatrix_x4(kf, sK + (nt * 8 + (lane & 7)) * LD + ks * 16 +
-                            (lane >> 3) * 8);
-        mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(sK + stage * T::KV_BYTES + j * T::BOX_KV, &map_k,
+                      &full[stage], 64 * j, hk, blk * TBK, b);
+          tma_load_4d(sV + stage * T::KV_BYTES + j * T::BOX_KV, &map_v,
+                      &full[stage], 64 * j, hk, blk * TBK, b);
+        }
+        if (++stage == TSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
+    return;
+  }
+
+  // consumer warpgroup
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;   // row within 8, column pair
+  const int row_lo = off + q0 + warp * 16;  // qpos of the warp's first row
+  // rows g and g+8 of the warp's slice
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int blk = 0; blk < nblocks; ++blk) {
+    const int k0 = blk * TBK;
+    mbar_wait(&full[stage], phase);
+    const unsigned char* kt = sK + stage * T::KV_BYTES;
+    const unsigned char* vt = sV + stage * T::KV_BYTES;
+
+    // S = Q K^T for the tile's 64 rows x TBK keys
+    float s[TBK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss<0>(
+          s, wgmma_desc(sQ + (ks / 4) * T::BOX_Q + (ks % 4) * 32, 16, 1024),
+          wgmma_desc(kt + (ks / 4) * T::BOX_KV + (ks % 4) * 32, 16, 1024),
+          ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
 
     // scale, mask (only where the block touches an edge), online softmax
     const bool edge = (k0 + TBK > Sk) || (causal && k0 + TBK - 1 > row_lo);
@@ -384,12 +401,12 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          float x = s[nt][2 * r + c] * scale_log2e;
+          float x = s[4 * nt + 2 * r + c] * scale_log2e;
           if (edge) {
             const int kpos = k0 + nt * 8 + 2 * tq + c;
             if (kpos >= Sk || (causal && kpos > qpos)) x = -INFINITY;
           }
-          s[nt][2 * r + c] = x;
+          s[4 * nt + 2 * r + c] = x;
           mx = fmaxf(mx, x);
         }
       }
@@ -404,8 +421,8 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float p = exp2f(s[nt][2 * r + c] - m_ref);
-          s[nt][2 * r + c] = p;
+          const float p = exp2f(s[4 * nt + 2 * r + c] - m_ref);
+          s[4 * nt + 2 * r + c] = p;
           psum += p;
         }
       }
@@ -413,75 +430,84 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       m[r] = m_new;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
-        acc[dt][2 * r] *= corr;
-        acc[dt][2 * r + 1] *= corr;
+        acc[4 * dt + 2 * r] *= corr;
+        acc[4 * dt + 2 * r + 1] *= corr;
       }
     }
 
-    // O += P V: P's accumulator layout is the A layout, two key tiles a step
+    // O += P V: two 8-key column tiles of S are one A fragment
+    unsigned pf[TBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < TBK / 16; ++kk) {
-      unsigned pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        unsigned vf[4];   // (b0, b1) of column tile dt, then of dt+1
-        ldmatrix_x4_trans(vf, sV + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LD +
-                                  dt * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[dt], pf, vf[0], vf[1]);
-        mma_bf16(acc[dt + 1], pf, vf[2], vf[3]);
-      }
+    for (int kk = 0; kk < TBK / 16; ++kk)
+      pv_step<D>(acc, pf[kk], wgmma_desc(vt + kk * 2048, T::BOX_KV, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with it
+    if (++stage == TSTAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
-  // normalise, stage this warp's rows through its own slice of sQ (its Q
-  // fragments are in registers), then 16-byte stores
-  float inv[2];
+  // normalise and store the rows below Sq, bf16 pairs
+  __nv_bfloat16* ob = o + b * o_b + h * o_h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    inv[r] = 1.f / (sum == 0.f ? 1.f : sum);
-  }
-  __syncwarp();
-  __nv_bfloat16* sO = sQ + warp * 16 * LD;
+    const float inv = 1.f / (sum == 0.f ? 1.f : sum);
+    const int qrow = q0 + warp * 16 + g + 8 * r;
+    if (qrow < Sq) {
+      __nv_bfloat16* orow = ob + (long long)qrow * o_s + 2 * tq;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<unsigned*>(sO + (g + 8 * r) * LD + dt * 8 + 2 * tq) =
-          pack_bf16(acc[dt][2 * r] * inv[r], acc[dt][2 * r + 1] * inv[r]);
-  }
-  __syncwarp();
-  __nv_bfloat16* ob = o + b * st.o_b + h * st.o_h;
-  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
-    const int row = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const int qrow = q0 + warp * 16 + row;
-    if (qrow < Sq)
-      *reinterpret_cast<uint4*>(ob + (long long)qrow * st.o_s + c) =
-          *reinterpret_cast<const uint4*>(sO + row * LD + c);
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<unsigned*>(orow + dt * 8) =
+            pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
+    }
   }
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int start, int num_tiles, int n_qblocks, int Hq, int G, int Sq,
-                int Sk, int causal, const Strides& st, cudaStream_t stream) {
+                int start, int num_tiles, int n_qblocks, int B, int Hq, int G,
+                int Sq, int Sk, int causal, const Strides& st,
+                cudaStream_t stream) {
+  // [B, S, H, D] as 4-D maps {D, H, S, B}: boxes of 64 (D) x 1 head x rows
+  const uint64_t esz = 2;
+  CUtensorMap map_q, map_k, map_v;
+  {
+    const uint64_t dims[4] = {D, (uint64_t)Hq, (uint64_t)Sq, (uint64_t)B};
+    const uint64_t strides[3] = {st.q_h * esz, st.q_s * esz, st.q_b * esz};
+    const uint32_t box[4] = {64, 1, BQ, 1};
+    if (int e = encode_bf16_map(&map_q, q, 4, dims, strides, box)) return e;
+  }
+  {
+    const uint64_t dims[4] = {D, (uint64_t)(Hq / G), (uint64_t)Sk,
+                              (uint64_t)B};
+    const uint32_t box[4] = {64, 1, TBK, 1};
+    const uint64_t ks[3] = {st.k_h * esz, st.k_s * esz, st.k_b * esz};
+    if (int e = encode_bf16_map(&map_k, k, 4, dims, ks, box)) return e;
+    const uint64_t vs[3] = {st.v_h * esz, st.v_s * esz, st.v_b * esz};
+    if (int e = encode_bf16_map(&map_v, v, 4, dims, vs, box)) return e;
+  }
   auto kernel = flash_attn_bf16_kernel<D>;
-  constexpr int smem = tc_smem_bytes<D>();   // above 48 KB: dynamic, opted in
+  constexpr int smem = TcTile<D>::SMEM;   // above 48 KB: dynamic, opted in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2e = 1.4426950408889634f / sqrtf((float)D);
   kernel<<<num_tiles, TC_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      start, n_qblocks, Hq, G, Sq, Sk, causal, st, scale_log2e);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), start, num_tiles,
+      n_qblocks, Hq, G, Sq, Sk, causal, st.o_b, st.o_s, st.o_h, scale_log2e);
   return (int)cudaGetLastError();
 }
 
@@ -516,10 +542,10 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
     threads = TC_THREADS;
     if (D == 64) {
       k = (const void*)flash_attn_bf16_kernel<64>;
-      smem = tc_smem_bytes<64>();
+      smem = TcTile<64>::SMEM;
     } else if (D == 128) {
       k = (const void*)flash_attn_bf16_kernel<128>;
-      smem = tc_smem_bytes<128>();
+      smem = TcTile<128>::SMEM;
     }
   } else if (dtype == 0) {
     threads = NTHREADS;
@@ -543,11 +569,12 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
 // Tiles [start, start+num_tiles) of the flat tile space (B*Hq) x
 // ceil(Sq/BQ), written in place into o.  q, o: [B,Sq,Hq,D]; k, v:
 // [B,Sk,Hk,D]; strides in elements, last stride 1.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the CUDA error code of the launch (0 = success), or
-// -1 for a shape the kernel does not take.
+// 1 = bfloat16.  Returns the CUDA error code of the launch (0 = success),
+// -1 for a shape the kernel does not take, or -2 if a tensor map cannot be
+// encoded.
 extern "C" int flash_attention_atom(
     const void* q, const void* k, const void* v, void* o, int start,
-    int num_tiles, int n_qblocks, int Hq, int G, int Sq, int Sk, int D,
+    int num_tiles, int n_qblocks, int B, int Hq, int G, int Sq, int Sk, int D,
     int causal, int dtype,
     long long q_b, long long q_s, long long q_h,
     long long k_b, long long k_s, long long k_h,
@@ -561,8 +588,8 @@ extern "C" int flash_attention_atom(
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, start, num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, st, s);
   if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, start, num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, st, s);
+    return launch_bf16<64>(q, k, v, o, start, num_tiles, n_qblocks, B, Hq, G, Sq, Sk, causal, st, s);
   if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, start, num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, st, s);
+    return launch_bf16<128>(q, k, v, o, start, num_tiles, n_qblocks, B, Hq, G, Sq, Sk, causal, st, s);
   return -1;
 }

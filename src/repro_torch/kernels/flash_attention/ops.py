@@ -21,9 +21,9 @@ from repro_torch.kernels.atoms import schedule
 from repro_torch.kernels.flash_attention.ref import flash_attention_atom_ref
 
 launches = 0                      # kernel launches made by this module
-# Query rows of a tile.  Sized for Hopper's shared memory and registers: with
-# 32-key KV blocks and head_dim 128 a tile's f32 staging takes 75 KB, so two
-# thread blocks fit one SM.
+# Query rows of a tile: one 64-row warpgroup multiply (wgmma) on the bf16
+# path.  Two thread blocks fit one SM on both paths (head_dim 128: bf16 83 KB
+# of Q and a 2-stage K/V ring; f32 75 KB of staging).
 BLOCK_Q = 64
 _lib = None
 
@@ -41,7 +41,7 @@ def _library():
         lib.flash_attention_ctas_per_sm.argtypes = [ctypes.c_int] * 2
         fn = lib.flash_attention_atom
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                        + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         _lib = lib
     return _lib
@@ -114,7 +114,7 @@ def flash_attention_atom(q, k, v, o, *, start: int, num_tiles: int,
     with torch.cuda.device(q.device):
         err = _library().flash_attention_atom(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), start,
-            num_tiles, -(-Sq // block_q), Hq, Hq // Hk, Sq, Sk, D,
+            num_tiles, -(-Sq // block_q), B, Hq, Hq // Hk, Sq, Sk, D,
             int(causal), dtype_code,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),

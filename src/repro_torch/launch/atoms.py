@@ -13,8 +13,10 @@ every atom in order on one stream, and reports for each count:
 - the max error against n = 1, which must be 0: a tile's arithmetic does not
   depend on the atom that runs it;
 - the host time to enqueue one atom;
-- the CTA waves that the atoms' tile counts imply at the kernel's occupancy:
-  atoms on one stream do not overlap, so each atom ends in a partial wave.
+- the CTA waves that the atoms' CTA tiles imply at the kernel's occupancy
+  (the matmul's from ``ops.cta_tiles``, the mirror of its schedule; for its
+  persistent bf16 kernel a wave is one round of the grid): atoms on one
+  stream do not overlap, so each atom ends in a partial wave.
 
 Each case's one-atom result, through the public entry point, is first held
 against the plain PyTorch version on the same inputs (``plain_err``).
@@ -114,7 +116,7 @@ class Prepared:
     plain: Callable          # () -> the plain PyTorch version's output
     limit: float             # max abs error allowed against ``plain()``
     tiles: int
-    sub: int                 # CTAs a tile
+    ctas: Callable           # (start, num_tiles) -> CTA tiles an atom runs
     occ: Optional[int]       # CTAs an SM holds, None off the GPU
 
 
@@ -128,6 +130,7 @@ def _prepare(case: Case, dev, gen) -> Prepared:
         a, b, bm = randn(s["M"], s["K"]), randn(s["K"], s["N"]), s["block"]
         tiles = tile_count(s["M"], s["N"], bm, bm)
         c = torch.zeros((s["M"], s["N"]), dtype=dt, device=dev)
+        cta = mm_ops.cta_shape(dt, bm, mm_ops.vec16(a, b, c))
 
         def timed(n):
             for start, ln in schedule(tiles, n):
@@ -141,8 +144,10 @@ def _prepare(case: Case, dev, gen) -> Prepared:
                                              block_n=bm),
             timed=timed, plain=lambda: want,
             limit=MM_TOL[case.dtype] * want.float().abs().max().item(),
-            tiles=tiles, sub=(bm // mm_ops.CTA_TILE) ** 2,
-            occ=mm_ops.ctas_per_sm(dt) if cuda else None)
+            tiles=tiles,
+            ctas=lambda start, n: len(mm_ops.cta_tiles(
+                s["M"], s["N"], bm, bm, start, n, *cta)),
+            occ=mm_ops.ctas_per_sm(dt, bm) if cuda else None)
     q = randn(s["B"], s["S"], s["Hq"], s["D"])
     k = randn(s["B"], s["S"], s["Hk"], s["D"])
     v = randn(s["B"], s["S"], s["Hk"], s["D"])
@@ -159,7 +164,7 @@ def _prepare(case: Case, dev, gen) -> Prepared:
         run=lambda n: fa_ops.flash_attention(q, k, v, causal=True,
                                              n_atoms=n),
         timed=timed, plain=lambda: attention_ref(q, k, v, causal=True),
-        limit=FLASH_TOL[case.dtype], tiles=tiles, sub=1,
+        limit=FLASH_TOL[case.dtype], tiles=tiles, ctas=lambda start, n: n,
         occ=fa_ops.ctas_per_sm(s["D"], dt) if cuda else None)
 
 
@@ -194,7 +199,7 @@ def sweep(device=None, quick: bool = False) -> list[dict]:
             rec = {"case": case.name, "kernel": case.kernel,
                    "dtype": case.dtype, "shape": case.shape, "n_atoms": n,
                    "atoms": len(ranges), "tiles": p.tiles,
-                   "ctas": p.tiles * p.sub, "max_abs_err": err,
+                   "ctas": p.ctas(0, p.tiles), "max_abs_err": err,
                    "plain_err": plain_err, "plain_limit": p.limit,
                    "device_ms": None, "overhead": None,
                    "host_ms_per_atom": None, "ctas_per_sm": p.occ,
@@ -206,8 +211,8 @@ def sweep(device=None, quick: bool = False) -> list[dict]:
                     device_ms=ms, overhead=ms / base_ms,
                     host_ms_per_atom=enqueue_ms(lambda: p.timed(n), iters=5)
                     / len(ranges),
-                    waves=sum(math.ceil(ln * p.sub / (sms * p.occ))
-                              for _, ln in ranges))
+                    waves=sum(math.ceil(p.ctas(start, ln) / (sms * p.occ))
+                              for start, ln in ranges))
             records.append(rec)
     return records
 

@@ -26,6 +26,7 @@ import torch
 from repro.configs.registry import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs.registry import get_config as jax_get_config
 from repro.kernels.atom_matmul.kernel import matmul_atom as jax_matmul_atom
+from repro.kernels.atom_matmul.ops import atom_ranges as jax_atom_ranges
 from repro.kernels.atom_matmul.ops import atom_matmul as jax_atom_matmul
 from repro.kernels.atom_matmul.ref import matmul_ref as jax_matmul_ref
 from repro.roofline import analysis as jax_analysis
@@ -166,6 +167,103 @@ def test_a_non_cpu_tensor_never_takes_the_plain_version():
     b = torch.empty(4, 6, device="meta")
     with pytest.raises(RuntimeError, match="no path for device"):
         ops.atom_matmul(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's schedule and routing, mirrored in Python
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(10))
+def test_cta_tiles_cover_c_once_and_stay_in_their_atom(seed):
+    """Over random shapes, block sizes, paths and the reference's atom
+    partitions: every element of C lies in exactly one CTA tile of one atom,
+    each CTA tile lies inside one of its atom's tiles, and an atom's CTA
+    tiles come in the kernel's order (atom tiles row-major, then sub-tiles
+    row-major)."""
+    rng = np.random.default_rng(seed)
+    M, N = (int(x) for x in rng.integers(1, 1300, 2))
+    bm, bn = (int(x) for x in rng.choice([128, 256, 384, 512], 2))
+    dtype = (torch.float32, torch.bfloat16)[int(rng.integers(0, 2))]
+    cm, cn = ops.cta_shape(dtype, bn, bool(rng.integers(0, 2)))
+    nn = -(-N // bn)
+    owner = np.full((M, N), -1)
+    ranges = jax_atom_ranges(tile_count(M, N, bm, bn), int(rng.integers(1, 9)))
+    for i, (start, num) in enumerate(ranges):
+        origins = ops.cta_tiles(M, N, bm, bn, start, num, cm, cn)
+        keys = []
+        for r, c in origins:
+            t = (r // bm) * nn + c // bn
+            assert start <= t < start + num
+            assert (r % bm) % cm == 0 and (c % bn) % cn == 0
+            assert r % bm + cm <= bm and c % bn + cn <= bn
+            assert (owner[r:r + cm, c:c + cn] == -1).all()
+            owner[r:r + cm, c:c + cn] = i
+            keys.append((t, (r % bm) // cm, (c % bn) // cn))
+        assert keys == sorted(keys)
+    assert (owner >= 0).all()
+
+
+@pytest.mark.parametrize("block_n", [128, 256, 384, 512, 640, 1024])
+def test_cta_shape_is_128x256_exactly_on_the_bf16_16_byte_path(block_n):
+    wide = block_n % 256 == 0
+    assert ops.cta_shape(torch.bfloat16, block_n, True) == (
+        (128, 256) if wide else (128, 128))
+    for dtype, vec16 in ((torch.bfloat16, False), (torch.float32, True),
+                         (torch.float32, False)):
+        assert ops.cta_shape(dtype, block_n, vec16) == (128, 128)
+
+
+def test_cta_tiles_of_the_headline_atom():
+    """One atom of every 256 x 256 tile at the widest llama3-8b projection
+    of a 1000-token prefill: 448 CTA tiles of 128 x 256, the last row 104
+    rows high."""
+    origins = ops.cta_tiles(1000, 14336, 256, 256, 0,
+                            tile_count(1000, 14336, 256, 256), 128, 256)
+    assert len(origins) == 448
+    assert origins[:3] == [(0, 0), (128, 0), (0, 256)]
+    assert max(r for r, _ in origins) == 896
+
+
+def _view(dtype, rows, width, pitch, offset=0):
+    """A [rows, width] view of a [rows, pitch] buffer, ``offset`` elements
+    in."""
+    return torch.zeros(rows, pitch + offset, dtype=dtype)[:, offset:offset
+                                                           + width]
+
+
+@pytest.mark.parametrize("a,b,want", [
+    (_view(torch.bfloat16, 64, 128, 128), _view(torch.bfloat16, 128, 256, 256),
+     True),                                                    # contiguous
+    (_view(torch.bfloat16, 64, 65, 65), _view(torch.bfloat16, 65, 256, 256),
+     False),                                                   # K = 65
+    (_view(torch.bfloat16, 64, 128, 128), _view(torch.bfloat16, 128, 129, 129),
+     False),                                                   # N = 129
+    (_view(torch.bfloat16, 64, 128, 152, 8),
+     _view(torch.bfloat16, 128, 256, 264), True),              # column ranges
+    (_view(torch.bfloat16, 64, 128, 140, 3),
+     _view(torch.bfloat16, 128, 256, 256), False),             # base not 16 B
+    (_view(torch.bfloat16, 64, 128, 132), _view(torch.bfloat16, 128, 256, 256),
+     False),                                                   # pitch 132
+    (_view(torch.float32, 64, 128, 132), _view(torch.float32, 128, 256, 260),
+     True),                                                    # f32: 4 a chunk
+    (_view(torch.float32, 64, 128, 128), _view(torch.float32, 128, 130, 130),
+     False),                                                   # f32 N = 130
+], ids=["contiguous", "K65", "N129", "column-ranges", "base-unaligned",
+        "pitch132", "f32", "f32-N130"])
+def test_vec16_routes_by_rows_of_whole_16_byte_chunks(a, b, want):
+    c = torch.zeros(a.shape[0], b.shape[1], dtype=a.dtype)
+    assert ops.vec16(a, b, c) is want
+    if want:       # the output's rows count too
+        wide = torch.zeros(c.shape[0], c.shape[1] + 4, dtype=c.dtype)
+        assert not ops.vec16(a, b, wide[:, 2:2 + c.shape[1]])
+
+
+def test_vec16_raises_for_an_operand_the_kernel_does_not_take():
+    a = torch.zeros(64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="last stride 1"):
+        ops.vec16(a, a.T, a)
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        ops.vec16(a.half(), a.half(), a.half())
 
 
 # ---------------------------------------------------------------------------

@@ -129,6 +129,86 @@ def test_matmul_kernel_random_shapes(cuda, seed, dtype):
     assert (o.float() - r.float()).abs().max().item() <= MM_TOL[dtype] * scale
 
 
+@pytest.mark.parametrize("M,N,K,bm,bn,strided,wgmma", [
+    (1000, 1000, 200, 256, 256, False, True),    # 128 x 256 CTA tiles
+    (1000, 1000, 200, 128, 128, False, True),    # 128 x 128 CTA tiles
+    (300, 700, 72, 128, 384, False, False),      # N = 700: guarded loads
+    (300, 512, 256, 128, 256, True, True),       # column-range views
+    (1000, 1024, 65, 256, 256, False, False),    # K = 65: guarded loads
+    (4, 4096, 4096, 256, 256, False, True),      # a decode step's rows
+])
+def test_matmul_kernel_bf16_routes(cuda, M, N, K, bm, bn, strided, wgmma):
+    """Each bf16 path, chosen before the launch by the 16-byte-row
+    predicate: values against the plain version, atoms in a permuted order
+    bit-equal to one atom, one atom on a sentinel changing exactly the
+    plain atom's elements."""
+    rng = np.random.default_rng(M + N + K)
+    pad = 8 if strided else 0
+    a = _randn(rng, (M, K + 2 * pad), torch.bfloat16, cuda)[:, pad:pad + K]
+    b = _randn(rng, (K, N + pad), torch.bfloat16, cuda)[:, :N]
+    c = torch.empty(M, N, dtype=torch.bfloat16, device=cuda)
+    assert matmul_ops.vec16(a, b, c) == wgmma
+    assert matmul_ops.cta_shape(torch.bfloat16, bn, wgmma) == (
+        (128, 256) if wgmma and bn % 256 == 0 else (128, 128))
+    want = matmul_ref(a, b)
+    scale = want.float().abs().max().item()
+    got = matmul_ops.atom_matmul(a, b, block_m=bm, block_n=bn)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() \
+        <= MM_TOL[torch.bfloat16] * scale
+    ranges = schedule(tile_count(M, N, bm, bn), 3)
+    order = tuple(reversed(range(len(ranges))))
+    assert torch.equal(got, matmul_ops.atom_matmul(
+        a, b, n_atoms=3, block_m=bm, block_n=bn, order=order))
+    start, num = ranges[len(ranges) // 2]
+    o = torch.full_like(got, 7.0)
+    r = torch.full_like(got, 7.0)
+    matmul_ops.matmul_atom(a, b, o, start=start, num_tiles=num, block_m=bm,
+                           block_n=bn)
+    matmul_atom_ref(a, b, r, start=start, num_tiles=num, block_m=bm,
+                    block_n=bn)
+    assert torch.equal(o == 7.0, r == 7.0)
+    assert torch.equal(o[o != 7.0], got[o != 7.0])
+
+
+def test_matmul_wgmma_kernel_holds_one_cta_an_sm(cuda):
+    assert matmul_ops.ctas_per_sm(torch.bfloat16, 256) == 1
+    assert matmul_ops.ctas_per_sm(torch.bfloat16, 128) >= 1
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(200, 200), (77, 333), (130, 70)])
+def test_flash_kernel_bf16_wgmma(cuda, D, causal, Sq, Sk):
+    """The bf16 wgmma path at both head dims, causal and not, chunked
+    prefill with Sk not a multiple of the 64-key block, and Sq > Sk (rows
+    with no visible key give zeros): values, atoms bit-equal, and an atom
+    writes only its tiles."""
+    rng = np.random.default_rng(D + Sq + Sk + causal)
+    B, Hq, Hk = 2, 8, 2
+    q = _randn(rng, (B, Sq, Hq, D), torch.bfloat16, cuda)
+    k = _randn(rng, (B, Sk, Hk, D), torch.bfloat16, cuda)
+    v = _randn(rng, (B, Sk, Hk, D), torch.bfloat16, cuda)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal)
+    assert (got.float() - want.float()).abs().max().item() \
+        <= TOL[torch.bfloat16]
+    assert torch.equal(got, flash_ops.flash_attention(
+        q, k, v, causal=causal, n_atoms=3, order=(2, 0, 1)))
+    total = flash_ops.tile_space(q)
+    o = torch.full_like(q, 7.0)
+    flash_ops.flash_attention_atom(q, k, v, o, start=total // 3,
+                                   num_tiles=total // 3, causal=causal)
+    nqb = -(-Sq // flash_ops.BLOCK_Q)
+    tile = (torch.arange(B * Hq, device=cuda)[:, None] * nqb
+            + torch.arange(Sq, device=cuda)[None, :] // flash_ops.BLOCK_Q)
+    inside = ((tile >= total // 3) & (tile < 2 * (total // 3))).view(
+        B, Hq, Sq).permute(0, 2, 1)
+    assert torch.equal(o[inside], got[inside])
+    assert bool((o[~inside] == 7.0).all())
+
+
 def test_matmul_kernel_refuses_what_it_does_not_take(cuda):
     a = torch.zeros(64, 32, device=cuda)
     with pytest.raises(ValueError, match="multiples of 128"):

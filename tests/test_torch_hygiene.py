@@ -40,6 +40,63 @@ def test_no_library_attention_or_compile(path):
         assert "scaled_dot_product_attention" not in text
 
 
+CSRC = sorted((PORT / "kernels" / "csrc").glob("*.cu*"))
+INCLUDE = re.compile(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', re.M)
+LIBRARY_HEADERS = ("cublas", "cudnn", "cutlass/gemm/device",
+                   "cutlass/gemm/collective", "cutlass/epilogue/collective")
+
+
+@pytest.mark.parametrize("path", CSRC, ids=lambda p: p.name)
+def test_kernel_sources_include_no_library_kernel(path):
+    """The kernels are written by hand: no cuBLAS, cuDNN or CUTLASS
+    device-level / collective GEMM header in any source."""
+    for inc in INCLUDE.findall(path.read_text()):
+        assert not any(w in inc.lower() for w in LIBRARY_HEADERS), (path, inc)
+
+
+def test_bf16_paths_issue_wgmma_on_tiles_loaded_by_tma():
+    hopper = (PORT / "kernels" / "csrc" / "hopper.cuh").read_text()
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                "setmaxnreg", "wgmma.wait_group"):
+        assert ptx in hopper, ptx
+    for name in ("atom_matmul.cu", "flash_attention.cu"):
+        src = (PORT / "kernels" / "csrc" / name).read_text()
+        assert '#include "hopper.cuh"' in src
+        assert re.search(r"wgmma_m64n\d+k16_(ss|rs)<", src), name
+        assert "tma_load_" in src and "const __grid_constant__ CUtensorMap" in src
+    # tensor maps are looked up through the CUDA runtime: no -lcuda
+    assert "cudaGetDriverEntryPoint" in hopper
+    from repro_torch.kernels import build
+    assert not any("cuda" in f and f.startswith("-l") for f in build.NVCC_FLAGS)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a1850d8c_14_atom_matmul_cu_d52b758024matmul_bf16_wgmma_kernelILi256EEEv14CUtensorMap_stS1_NS_4ArgsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__a1850d8c_14_atom_matmul_cu_d52b758024matmul_bf16_wgmma_kernelILi256EEEv14CUtensorMap_stS1_NS_4ArgsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a1850d8c_14_atom_matmul_cu_d52b758017matmul_f32_kernelILb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__a1850d8c_14_atom_matmul_cu_d52b758017matmul_f32_kernelILb1EEEvNS_4ArgsE
+    48 bytes stack frame, 48 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 48 bytes cumulative stack size
+ptxas warning : (C7508) setmaxnreg ignored; unable to determine register count at entry
+"""
+
+
+def test_ptxas_report_reads_registers_spills_and_warnings(monkeypatch,
+                                                          tmp_path):
+    from repro_torch.kernels import build
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    build.library_path("atom_matmul").with_suffix(".log").write_text(PTXAS_LOG)
+    rep = build.ptxas_report("atom_matmul")
+    assert rep["kernels"] == {
+        "matmul_bf16_wgmma_kernel<256>": {"spill_stores": 0, "spill_loads": 0,
+                                          "registers": 168},
+        "matmul_f32_kernel<1>": {"spill_stores": 48, "spill_loads": 60,
+                                 "registers": 128}}
+    assert len(rep["warnings"]) == 1 and "C7508" in rep["warnings"][0]
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run([sys.executable, "-c", code], env=env,
