@@ -7,11 +7,13 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (values, atom order-freedom,
-rows / tiles outside an atom untouched), times them beside their bound, then
-drives two paths, each with the kernels' launch counts set to 0 just before
-and read just after: it serves full-size ``llama3-8b`` and ``olmo-1b``
-(random weights from a seed) through ``repro_torch.launch.serve.serve``
-(decode and flash attention), and runs the atom-count sweep
+rows / tiles outside an atom untouched, the route each case took: for decode
+attention every split count of the split-KV kernel; key pitches it cannot
+take are refused), times them beside their bound (decode attention at two
+shapes), then drives two paths, each with the kernels' launch counts set to 0
+just before and read just after: it serves full-size ``llama3-8b`` and
+``olmo-1b`` (random weights from a seed) through
+``repro_torch.launch.serve.serve`` (decode and flash attention), and runs the atom-count sweep
 ``repro_torch.launch.atoms.sweep`` (the atomized matmul at the full-width
 ``llama3-8b`` projections, and flash attention).  Every phase prints one JSON
 line; any failure ends the run with a non-zero exit code.  The last line is
@@ -42,6 +44,10 @@ from repro_torch.roofline.analysis import H100  # noqa: E402
 # atom matmul against its plain version, as max abs error over the largest
 # |output| (the tolerance's reasoning is in that module)
 from repro_torch.launch.atoms import MM_TOL  # noqa: E402
+# decode attention's timed shapes and the limit they are held to there (the
+# tolerance's reasoning is in that module)
+from repro_torch.launch.decode_compare import (  # noqa: E402
+    DECODE_SHAPES, dropped_split_err, headline_limit)
 
 # kernel against its plain version on the same inputs, max abs error.
 # float32: both sides do f32 math and differ only in summation order and in
@@ -114,9 +120,19 @@ def _same(torch, a, b) -> bool:
     return torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-5)
 
 
-def check_decode(torch, dev, gen, *, B, Hq, Hk, D, S, dtype, lens, strided=False):
-    """One decode-attention case: values, atoms in permuted order bit-equal,
-    rows outside an atom untouched.  Returns the max abs error."""
+def decode_plan(torch, ops, q, kc, vc):
+    """The kernel route a decode call takes (decided in the wrapper before
+    the launch) and its split schedule; the plain version on the CPU."""
+    if q.device.type != "cuda":
+        return {"route": "plain", "nsplit": 1, "chunk": kc.shape[1]}
+    return ops.plan(q, kc, vc)
+
+
+def check_decode(torch, dev, gen, *, B, Hq, Hk, D, S, dtype, lens,
+                 strided=False, route=None, nsplit=None):
+    """One decode-attention case: the route and split count it takes (where
+    given), values, atoms in permuted order bit-equal, rows outside an atom
+    untouched.  Returns the max abs error and the plan."""
     from repro_torch.kernels.decode_attention import ops, ref
     dt = getattr(torch, dtype)
     q = _randn(torch, gen, (B, Hq, D), dt, dev)
@@ -127,21 +143,29 @@ def check_decode(torch, dev, gen, *, B, Hq, Hk, D, S, dtype, lens, strided=False
     else:
         kc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
         vc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
+    what = f"decode_attention {dtype} B={B} Hq={Hq} Hk={Hk} D={D} S={S}"
+    plan = decode_plan(torch, ops, q, kc, vc)
+    if dev.type == "cuda" and ((route and plan["route"] != route)
+                               or (nsplit and plan["nsplit"] != nsplit)):
+        fail(f"{what}: took {plan}, not route {route} nsplit {nsplit}")
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     want = ref.decode_attention_ref(q, kc, vc, lens_t)
     got = ops.decode_attention(q, kc, vc, lens_t)
     err = (got.float() - want.float()).abs().max().item()
     if not math.isfinite(err) or err > TOL[("decode", dtype)]:
-        fail(f"decode_attention {dtype} B={B} Hq={Hq} Hk={Hk} D={D} S={S}: "
-             f"max abs err {err} > {TOL[('decode', dtype)]}")
+        fail(f"{what}: max abs err {err} > {TOL[('decode', dtype)]}")
     for b, n in enumerate(lens):
         if n == 0 and got[b].abs().max().item() != 0.0:
             fail("decode_attention: a row of length 0 must give zeros")
-    a3 = ops.decode_attention(q, kc, vc, lens_t, n_atoms=3)
-    p3 = ops.decode_attention(q, kc, vc, lens_t, n_atoms=3, order=(2, 0, 1))
-    if not (torch.equal(a3, p3) and _same(torch, a3, got)):
-        fail("decode_attention: atoms do not compose bit for bit")
     R = B * Hk
+    a3 = ops.decode_attention(q, kc, vc, lens_t, n_atoms=3)
+    p3 = ops.decode_attention(q, kc, vc, lens_t, n_atoms=3,
+                              order=tuple(range(1, min(3, R))) + (0,))
+    pR = ops.decode_attention(q, kc, vc, lens_t, n_atoms=R,
+                              order=tuple(reversed(range(R))))
+    if not (torch.equal(a3, p3) and _same(torch, a3, got)
+            and _same(torch, pR, got)):
+        fail(f"{what}: atoms do not compose bit for bit")
     start, num = R // 3, max(1, R // 3)
     o = torch.full_like(q, 7.0)
     ops.decode_attention_atom(q, kc, vc, lens_t, o, start=start, num_rows=num)
@@ -151,7 +175,29 @@ def check_decode(torch, dev, gen, *, B, Hq, Hk, D, S, dtype, lens, strided=False
     if not (torch.equal(og[inside], gg[inside])
             and bool((og[~inside] == 7.0).all())):
         fail("decode_attention_atom wrote outside its rows")
-    return err
+    return err, plan
+
+
+def check_decode_refuses(torch, dev, gen, *, B, Hq, Hk, D, S, lens):
+    """A bf16 cache with a key pitch of Hk*D + 3 elements, which neither TMA
+    nor 16-byte loads can address: on the card the wrapper raises before any
+    launch (the plain version runs on the CPU).  Returns what it raised."""
+    from repro_torch.kernels.decode_attention import ops
+    dt = torch.bfloat16
+    q = _randn(torch, gen, (B, Hq, D), dt, dev)
+    kc, vc = (_randn(torch, gen, (B, S, Hk * D + 3), dt, dev)[
+        :, :, 1:1 + Hk * D].unflatten(-1, (Hk, D)) for _ in range(2))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = ops.launches
+    try:
+        ops.decode_attention(q, kc, vc, lens_t)
+    except ValueError as e:
+        if ops.launches != before:
+            fail("decode_attention launched on a cache it refuses")
+        return str(e)
+    if dev.type == "cuda":
+        fail(f"decode_attention took a key pitch of {Hk * D + 3} elements")
+    return None
 
 
 def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True):
@@ -299,13 +345,13 @@ def matmul_headline(torch, dev, gen, flush, iters, real):
             "l2": "cold (flushed before every launch)"}
 
 
-def decode_headline(torch, dev, gen, flush, iters):
-    """Decode attention at the serving path's shape: 4 slots of llama3-8b,
-    a 2048-token stripe each, ragged lengths."""
+def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
+    """Decode attention at one of ``DECODE_SHAPES``, bf16, one atom over
+    every row, L2 flushed before each launch.  Held to ``headline_limit``,
+    which must lie below what a kernel that dropped one split would read."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    B, Hq, Hk, D, S = (4, 32, 8, 128, 2048) if flush is not None else (2, 4, 2, 16, 64)
-    lens = [300, 700, 1000, 1040][:B] if flush is not None else [5, 64]
+    B, Hq, Hk, D, S, lens = DECODE_SHAPES[shape][flush is None]
     dt = torch.bfloat16
     q = _randn(torch, gen, (B, Hq, D), dt, dev)
     kc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
@@ -314,8 +360,16 @@ def decode_headline(torch, dev, gen, flush, iters):
     want = ref.decode_attention_ref(q, kc, vc, lens_t)
     got = ops.decode_attention(q, kc, vc, lens_t)
     err = (got.float() - want.float()).abs().max().item()
-    if not err <= TOL[("decode", "bfloat16")]:
-        fail(f"decode_attention at the serving shape: err {err}")
+    limit = headline_limit(want)
+    if not err <= limit:
+        fail(f"decode_attention at the {shape} shape: err {err} > {limit}")
+    plan = decode_plan(torch, ops, q, kc, vc)
+    dropped = dropped_split_err(q, kc, vc, lens_t, plan["chunk"])
+    if not dropped > limit:
+        fail(f"decode_attention at the {shape} shape: a dropped split reads "
+             f"{dropped}, within the limit {limit}")
+    clusters = (ops.max_active_clusters(D, plan["nsplit"])
+                if plan["route"] == "split" else None)
     # the kernel alone: one atom of every row into an output made once, so
     # the memset of a fresh output is not timed
     o = torch.empty_like(q)
@@ -324,8 +378,8 @@ def decode_headline(torch, dev, gen, flush, iters):
     ms = time_ms(torch, one, iters=iters, flush=flush)
     host_ms = enqueue_ms(torch, one)
     if not _same(torch, o, got):
-        fail("decode_attention_atom at the serving shape differs from the "
-             "entry point")
+        fail(f"decode_attention_atom at the {shape} shape differs from the "
+             f"entry point")
     plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, lens_t),
                        iters=iters, flush=flush)
     mask = (torch.arange(S, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
@@ -342,8 +396,9 @@ def decode_headline(torch, dev, gen, flush, iters):
     t_bytes = n_bytes / H100.hbm_bw * 1e3
     t_ops = flops / H100.peak_flops * 1e3
     return {"shape": {"B": B, "Hq": Hq, "Hk": Hk, "D": D, "S": S, "lens": lens},
-            "dtype": "bfloat16", "max_abs_err": err,
-            "err_limit": TOL[("decode", "bfloat16")], "ms": ms,
+            "took": plan, "max_active_clusters": clusters,
+            "dtype": "bfloat16", "max_abs_err": err, "err_limit": limit,
+            "dropped_split_err": dropped, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "enqueue_ms": host_ms,
@@ -409,14 +464,35 @@ def kernels_phase(torch, dev, real: bool):
     gen.manual_seed(0)
     cases = []
     if real:
-        dec = [dict(B=4, Hq=32, Hk=8, D=128, S=2048, dtype="bfloat16", lens=[1, 37, 1000, 2048]),
-               dict(B=4, Hq=32, Hk=8, D=128, S=2048, dtype="float32", lens=[2048, 513, 0, 64]),
+        dec = [dict(B=4, Hq=32, Hk=8, D=128, S=2048, dtype="bfloat16", lens=[1, 37, 1000, 2048],
+                    route="split"),
+               dict(B=4, Hq=32, Hk=8, D=128, S=2048, dtype="float32", lens=[2048, 513, 0, 64],
+                    route="f32"),
                dict(B=8, Hq=32, Hk=8, D=128, S=2048, dtype="bfloat16",
-                    lens=[5, 2048, 31, 32, 33, 999, 1500, 257], strided=True),
-               dict(B=4, Hq=16, Hk=16, D=128, S=2048, dtype="bfloat16", lens=[100, 2000, 3, 640]),
-               dict(B=2, Hq=8, Hk=2, D=64, S=300, dtype="float32", lens=[300, 17]),
-               dict(B=2, Hq=24, Hk=2, D=64, S=130, dtype="bfloat16", lens=[130, 64]),
-               dict(B=3, Hq=6, Hk=2, D=128, S=96, dtype="float32", lens=[96, 1, 50])]
+                    lens=[5, 2048, 31, 32, 33, 999, 1500, 257], strided=True,
+                    route="split"),
+               dict(B=4, Hq=16, Hk=16, D=128, S=2048, dtype="bfloat16", lens=[100, 2000, 3, 640],
+                    route="split"),
+               dict(B=2, Hq=8, Hk=2, D=64, S=300, dtype="float32", lens=[300, 17], route="f32"),
+               dict(B=2, Hq=24, Hk=2, D=64, S=130, dtype="bfloat16", lens=[130, 64],
+                    route="split", nsplit=2),
+               dict(B=3, Hq=6, Hk=2, D=128, S=96, dtype="float32", lens=[96, 1, 50], route="f32")]
+        # the split kernel at every split count (set by the key blocks of S
+        # where the rows are few), lens on the split boundaries (chunk - 1,
+        # chunk, chunk + 1, 0, S), two passes of 16 heads (G = 20), enough
+        # rows for no split
+        dec += [dict(B=3, Hq=32, Hk=8, D=128, S=64, dtype="bfloat16", lens=[0, 63, 64],
+                     route="split", nsplit=1),
+                dict(B=40, Hq=32, Hk=8, D=128, S=512, dtype="bfloat16",
+                     lens=[(37 * i) % 513 for i in range(40)], route="split", nsplit=1),
+                dict(B=4, Hq=32, Hk=8, D=128, S=150, dtype="bfloat16", lens=[127, 128, 129, 150],
+                     route="split", nsplit=2),
+                dict(B=4, Hq=8, Hk=2, D=64, S=300, dtype="bfloat16", lens=[0, 127, 129, 300],
+                     route="split", nsplit=4),
+                dict(B=2, Hq=40, Hk=2, D=128, S=1000, dtype="bfloat16", lens=[128, 1000],
+                     route="split", nsplit=8)]
+        refused = [dict(B=3, Hq=16, Hk=4, D=128, S=500, lens=[500, 0, 257]),
+                   dict(B=2, Hq=8, Hk=2, D=64, S=333, lens=[65, 333])]
         fl = [dict(B=1, Sq=37, Sk=37, Hq=32, Hk=8, D=128, dtype="bfloat16"),
               dict(B=1, Sq=512, Sk=512, Hq=32, Hk=8, D=128, dtype="bfloat16"),
               dict(B=1, Sq=1000, Sk=1000, Hq=32, Hk=8, D=128, dtype="bfloat16"),
@@ -467,6 +543,7 @@ def kernels_phase(torch, dev, real: bool):
     else:
         dec = [dict(B=3, Hq=4, Hk=2, D=16, S=40, dtype="float32", lens=[40, 0, 7]),
                dict(B=2, Hq=4, Hk=4, D=16, S=33, dtype="bfloat16", lens=[1, 33], strided=True)]
+        refused = [dict(B=2, Hq=4, Hk=2, D=16, S=70, lens=[0, 70])]
         fl = [dict(B=2, Sq=70, Sk=70, Hq=4, Hk=2, D=16, dtype="float32"),
               dict(B=1, Sq=20, Sk=90, Hq=4, Hk=1, D=16, dtype="bfloat16"),
               dict(B=1, Sq=90, Sk=50, Hq=2, Hk=2, D=16, dtype="float32")]
@@ -478,9 +555,18 @@ def kernels_phase(torch, dev, real: bool):
               dict(M=70, N=300, K=24, dtype="bfloat16", bm=128, bn=256,
                    strided=True)]
     for c in dec:
-        err = check_decode(torch, dev, gen, **c)
-        cases.append({"kernel": "decode_attention", **c, "max_abs_err": err,
+        err, plan = check_decode(torch, dev, gen, **c)
+        cases.append({"kernel": "decode_attention", **c, "took": plan,
+                      "max_abs_err": err,
                       "err_limit": TOL[("decode", c["dtype"])]})
+    took = {(c["took"]["route"], c["took"]["nsplit"]) for c in cases}
+    if real and not ({("split", n) for n in (1, 2, 4, 8)}
+                     | {("f32", 1)}) <= took:
+        fail(f"decode_attention cases reached only {sorted(took)}")
+    for c in refused:
+        cases.append({"kernel": "decode_attention", **c, "dtype": "bfloat16",
+                      "key_pitch": c["Hk"] * c["D"] + 3,
+                      "raised": check_decode_refuses(torch, dev, gen, **c)})
     for c in fl:
         err = check_flash(torch, dev, gen, **c)
         cases.append({"kernel": "flash_attention", **c, "max_abs_err": err,
@@ -493,6 +579,8 @@ def kernels_phase(torch, dev, real: bool):
     flush = (torch.empty(256 << 20, dtype=torch.uint8, device=dev)
              if real else None)
     k1 = decode_headline(torch, dev, gen, flush, iters=30 if real else 1)
+    k1_long = decode_headline(torch, dev, gen, flush, iters=30 if real else 1,
+                              shape="long_context")
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
     k2_f32 = flash_headline(torch, dev, gen, iters=10 if real else 1,
                             real=real, dtype="float32")
@@ -501,10 +589,16 @@ def kernels_phase(torch, dev, real: bool):
     del flush
     if real:
         torch.cuda.synchronize()
-    emit("kernels", cases=cases, decode_attention=k1, flash_attention=k2,
+    emit("kernels", cases=cases, decode_attention=k1,
+         decode_attention_long_context=k1_long, flash_attention=k2,
          flash_attention_float32=k2_f32, atom_matmul=k3,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
-                  "rows / tiles outside an atom untouched"])
+                  "decode: atoms (n=R) in reversed order bit-equal to n=1",
+                  "rows / tiles outside an atom untouched",
+                  "the route (and decode's split count) each case took",
+                  "decode: key pitches the kernels cannot address raise",
+                  "decode headlines: max abs error within 2^-6 of max|output|,"
+                  " below what one dropped split reads"])
     return k1, k2, k3
 
 

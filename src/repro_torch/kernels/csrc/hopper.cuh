@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the kernels: mbarriers, TMA tensor
-// loads, warpgroup multiplies (wgmma) on 128-byte-swizzled shared memory,
-// register rebalancing between warpgroups, and the host-side encoding of
-// tensor maps.
+// loads, thread block clusters (barrier, distributed shared memory), warpgroup
+// multiplies (wgmma) on 128-byte-swizzled shared memory, register
+// rebalancing between warpgroups, and the host-side encoding of tensor maps.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // box is at most 128 bytes (64 bf16) along its inner dimension; its rows of
@@ -84,6 +84,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // tensor is filled with zeros (and still counts toward the box's bytes).
 // ---------------------------------------------------------------------------
 
+// brings a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache before its first load
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"((uint64_t)map) : "memory");
+}
+
+// orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy (TMA) writes to it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -103,6 +115,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters: a barrier over every thread of the cluster that has
+// not exited (release / acquire: shared-memory writes before it are visible
+// to the cluster after it), and loads from a peer CTA's shared memory
+// (distributed shared memory)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// the address of `p` (this CTA's shared memory) in the shared memory of the
+// cluster's CTA `rank`
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// four floats at a 16-byte-aligned cluster address
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -60,12 +60,6 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                : "memory");
 }
 
-// wait for every cp.async this thread has started
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // close the group of cp.async started since the last commit (a group may be
 // empty), and wait until at most N of this thread's groups are in flight
 __device__ __forceinline__ void cp_async_commit() {

@@ -6,7 +6,13 @@ each executed by one launch that writes in place into the running output.
 
 For a CUDA tensor an atom launches the hand-written kernel
 (``csrc/decode_attention.cu``) or raises.  The plain PyTorch version is
-taken only for tensors that lie on the CPU.
+taken only for tensors that lie on the CPU.  The kernel's route is decided
+here, before the launch (``plan``): float32 takes the CUDA-core kernel,
+bfloat16 the split-KV kernel fed by TMA, one cluster of ``nsplit`` CTAs a row
+(``kv_split`` mirrors the C side's schedule, checked when the library loads;
+``cluster_fit`` reads the card's cluster occupancy it needs).  Both load
+whole 16-byte chunks, so caches whose strides are not multiples of 8
+elements raise.
 """
 from __future__ import annotations
 
@@ -20,19 +26,80 @@ from repro_torch.kernels.atoms import schedule
 from repro_torch.kernels.decode_attention.ref import decode_attention_atom_ref
 
 launches = 0                      # kernel launches made by this module
+KEY_BLOCK = 64                    # keys of the split kernel's TMA block
+# route codes of the C interface
+ROUTES = {"f32": 0, "split": 1}
+SPLITS = (1, 2, 4, 8)              # split counts; 8 is the portable cluster size
 _lib = None
+_fit: dict[tuple[int, int], tuple[int, ...]] = {}
+
+
+def kv_split(R_total: int, S: int, fit: Sequence[int]) -> tuple[int, int]:
+    """The split schedule of a call over ``R_total = B*Hk`` rows of ``S``
+    keys: ``(nsplit, chunk)``.  ``fit[i]`` is the number of clusters of
+    ``SPLITS[i]`` CTAs the card runs at once (``cluster_fit``).  ``nsplit``
+    is the largest of ``SPLITS``, at most the 64-key blocks of ``S``, whose
+    ``R_total`` clusters all run at once, so every row is in flight in one
+    round; split ``j`` covers keys ``[j*chunk, min((j+1)*chunk, S))`` and
+    ``chunk`` is a multiple of 64.  It depends on the whole call and the
+    card, never on an atom's rows, so every atom runs a row the same way."""
+    nb = -(-S // KEY_BLOCK) if S > 0 else 1
+    n = 1
+    for i, c in enumerate(SPLITS[1:], start=1):
+        if c <= nb and fit[i] >= R_total:
+            n = c
+    return n, -(-nb // n) * KEY_BLOCK
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = build.load("decode_attention")
+        lib.decode_attention_kv_split.restype = ctypes.c_int
+        lib.decode_attention_kv_split.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        for R in (1, 8, 16, 32, 33, 66, 132, 264, 1000):
+            for S in (1, 64, 65, 128, 200, 300, 2048, 8192):
+                for fit in ((264, 132, 62, 30), (132, 66, 30, 15),
+                            (1, 1, 1, 1), (1000, 500, 250, 120)):
+                    n, c = ctypes.c_int(), ctypes.c_int()
+                    lib.decode_attention_kv_split(
+                        R, S, (ctypes.c_int * 4)(*fit), ctypes.byref(n),
+                        ctypes.byref(c))
+                    if (n.value, c.value) != kv_split(R, S, fit):
+                        raise RuntimeError(
+                            "csrc/decode_attention.cu and ops.kv_split "
+                            f"disagree (R_total={R}, S={S}, fit={fit})")
+        lib.decode_attention_max_active_clusters.restype = ctypes.c_int
+        lib.decode_attention_max_active_clusters.argtypes = [ctypes.c_int] * 2
         fn = lib.decode_attention_atom
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                        + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
         _lib = lib
     return _lib
+
+
+def max_active_clusters(head_dim: int, nsplit: int) -> int:
+    """Clusters of ``nsplit`` CTAs of the split kernel that the current GPU
+    runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = _library().decode_attention_max_active_clusters(head_dim, nsplit)
+    if n < 0:
+        raise RuntimeError(f"decode_attention cluster occupancy query "
+                           f"failed ({n})")
+    return n
+
+
+def cluster_fit(device, head_dim: int) -> tuple[int, ...]:
+    """``max_active_clusters`` for each of ``SPLITS`` on a CUDA device, read
+    once per device and head dim."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if (idx, head_dim) not in _fit:
+        with torch.cuda.device(idx):
+            _fit[idx, head_dim] = tuple(max_active_clusters(head_dim, n)
+                                        for n in SPLITS)
+    return _fit[idx, head_dim]
 
 
 def _check(q, k_cache, v_cache, lens, o):
@@ -53,13 +120,18 @@ def _check(q, k_cache, v_cache, lens, o):
         raise ValueError("all tensors must lie on one device")
 
 
-def _check_cuda(q, k_cache, v_cache, lens, o) -> int:
-    if lens.dtype != torch.int32 or not lens.is_contiguous():
-        raise TypeError("lens must be a contiguous int32 tensor")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("o", o)):
+def plan(q, k_cache, v_cache) -> dict:
+    """The kernel route of a call on CUDA tensors, decided before the
+    launch: ``{"route": "f32" | "split", "nsplit", "chunk"}`` (``nsplit``
+    and ``chunk`` for the split route, else 1 and ``S``).  Raises for an
+    operand the kernels do not take."""
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         code = build.check_attention_operand("decode attention", name, t)
-    return code
+    B, S, Hk = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
+    if code == build.DTYPE_CODES["torch.float32"]:
+        return {"route": "f32", "nsplit": 1, "chunk": S}
+    nsplit, chunk = kv_split(B * Hk, S, cluster_fit(q.device, q.shape[-1]))
+    return {"route": "split", "nsplit": nsplit, "chunk": chunk}
 
 
 def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
@@ -79,14 +151,18 @@ def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
     if q.device.type != "cuda":
         raise RuntimeError(f"decode attention has a CUDA kernel and a CPU "
                            f"version; no path for device {q.device}")
-    dtype_code = _check_cuda(q, k_cache, v_cache, lens, o)
+    if lens.dtype != torch.int32 or not lens.is_contiguous():
+        raise TypeError("lens must be a contiguous int32 tensor")
+    build.check_attention_operand("decode attention", "o", o)
+    p = plan(q, k_cache, v_cache)
     if num_rows == 0:
         return o
     with torch.cuda.device(q.device):
         err = _library().decode_attention_atom(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), o.data_ptr(), start, num_rows, Hk, Hq // Hk, S,
-            D, dtype_code,
+            lens.data_ptr(), o.data_ptr(), start, num_rows, B * Hk, Hk,
+            Hq // Hk, S, D, build.DTYPE_CODES[str(q.dtype)],
+            ROUTES[p["route"]], p["nsplit"],
             q.stride(0), q.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
@@ -94,7 +170,8 @@ def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_atom launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, S={S}, {q.dtype})")
+                           f"{err} (q {tuple(q.shape)}, S={S}, {q.dtype}, "
+                           f"route {p['route']}, nsplit {p['nsplit']})")
     launches += 1
     return o
 

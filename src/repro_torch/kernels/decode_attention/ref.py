@@ -55,3 +55,38 @@ def decode_attention_atom_ref(q, k_cache, v_cache, lens, o, *, start: int,
                                lens[b:b + 1])[0].to(o.dtype)
         r += h1 - h0
     return o
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, lens, nsplit: int,
+                               chunk: int):
+    """The split-KV kernel's arithmetic: split ``j`` of each row attends to
+    keys ``[j*chunk, min((j+1)*chunk, len))`` and keeps its partial
+    ``(m_j, l_j, O_j)`` in f32 (an empty split: ``m = -inf, l = 0``); the
+    partials are merged in split order 0..nsplit-1 with the ``l == 0 -> 1``
+    rule.  q [B,Hq,D], caches [B,S,Hk,D], lens [B] -> [B,Hq,D]."""
+    B, Hq, D = q.shape
+    S, Hk = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hk, Hq // Hk, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * (1.0 / D ** 0.5)
+    kpos = torch.arange(S, device=q.device)
+    lens = lens.clamp(0, S)
+    m_all, l_all, o_all = [], [], []
+    for j in range(nsplit):
+        inside = ((kpos >= j * chunk) & (kpos < (j + 1) * chunk))[None, :] \
+            & (kpos[None, :] < lens[:, None])                      # [B,S]
+        sj = s.masked_fill(~inside[:, None, None, :], float("-inf"))
+        m = sj.amax(dim=-1, keepdim=True)                          # [B,Hk,G,1]
+        p = torch.exp(sj - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1, keepdim=True))
+        o_all.append(torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()))
+    m = torch.stack(m_all).amax(dim=0)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    num = torch.zeros_like(o_all[0])
+    den = torch.zeros_like(l_all[0])
+    for mj, lj, oj in zip(m_all, l_all, o_all):              # in split order
+        f = torch.exp(mj - m)
+        num = num + f * oj
+        den = den + f * lj
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    return (num / den).reshape(B, Hq, D).to(q.dtype)

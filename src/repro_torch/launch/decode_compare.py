@@ -1,0 +1,166 @@
+"""Decode attention (K1): its timed shapes, the limit its bf16 result is held
+to there, and a comparison of two source trees' kernels on one GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.decode_compare \\
+        --tree base=OTHER/src --tree change=src --order base,change,change,base
+
+Each run is a fresh process that imports ``repro_torch`` from its tree's
+``src`` directory (the other tree needs none of this module), builds that
+tree's ``decode_attention.cu``, and times one atom over every row
+(``decode_attention_atom``, bf16, L2 flushed before each launch, median of
+CUDA-event times by the tree's ``launch.timing.device_ms``) at each of
+``COMPARE_SHAPES``; and again with every length 0 (``zero_lens_ms``: launch,
+prologue and merge, no key loaded).  ``floor_ms`` is the same harness around
+the smallest kernel (zeroing 16 KB): what any one launch measures at least.
+Each run holds its output against the plain version with ``headline_limit``.
+Prints one JSON line a run, then the card's name and power limit.  Needs a
+GPU.
+
+``chip_smoke.py`` times ``DECODE_SHAPES`` and holds them to the same limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+# (B, Hq, Hk, D, S, lens) at full size, then the smoke's rehearsal toy: the
+# serving path's 4 slots of llama3-8b with a 2048-token stripe each and ragged
+# lengths; one slot of llama3-8b at its 8192-token context
+DECODE_SHAPES = {
+    "serving": ((4, 32, 8, 128, 2048, [300, 700, 1000, 1040]),
+                (2, 4, 2, 16, 64, [5, 64])),
+    "long_context": ((1, 32, 8, 128, 8192, [8000]),
+                     (1, 4, 2, 16, 128, [100])),
+}
+# the comparison adds 40 slots of llama3-8b (320 rows): the split kernel runs
+# there with one split a row, the domain of the one-block-a-row kernel it
+# replaced
+COMPARE_SHAPES = {**{k: v[0] for k, v in DECODE_SHAPES.items()},
+                  "large_batch": (40, 32, 8, 128, 2048,
+                                  [300, 700, 1000, 1040] * 10)}
+
+# bf16 decode attention against its plain version at the timed shapes: max
+# abs error over the largest |output|.  Both sides round an f32 result to
+# bf16 once (and the kernel rounds P to bf16 for the tensor-core product), so
+# they differ by about one bf16 step at the largest output, 2^-8 to 2^-7 of
+# it; the limit is two steps.  An absolute limit cannot serve here: at 8000
+# keys the outputs are about N(0, e/8000), largest ~0.07, below an O(1)
+# limit; leaving out one split of a row moves the output by several times
+# this limit (``dropped_split_err``, which the smoke reports and checks).
+DECODE_REL_TOL = 2.0 ** -6
+
+
+def headline_limit(want) -> float:
+    """The largest max abs error ``DECODE_REL_TOL`` allows against ``want``."""
+    return DECODE_REL_TOL * want.float().abs().max().item()
+
+
+def _masked_attention(q, k_cache, v_cache, keep):
+    """Plain f32 decode attention over the keys ``keep`` [B,S] marks; a row
+    with no key gives zeros."""
+    import torch
+    B, Hq, D = q.shape
+    Hk = k_cache.shape[2]
+    qg = q.reshape(B, Hk, Hq // Hk, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) / math.sqrt(D)
+    s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()).reshape(
+        B, Hq, D)
+
+
+def dropped_split_err(q, k_cache, v_cache, lens, chunk: int) -> float:
+    """What a kernel that left out one split of ``chunk`` keys would read:
+    the least, over the splits that hold a key, of the max abs difference
+    between plain attention over every valid key and over all but that
+    split's.  A limit below it sees any dropped split."""
+    import torch
+    S = k_cache.shape[1]
+    kpos = torch.arange(S, device=q.device)
+    lens = lens.clamp(0, S)
+    keep = kpos[None, :] < lens[:, None]
+    full = _masked_attention(q, k_cache, v_cache, keep)
+    top = int(lens.max().item())
+    errs = [(_masked_attention(q, k_cache, v_cache, keep & ~(
+        (kpos >= j * chunk) & (kpos < (j + 1) * chunk))[None, :]) - full)
+        .abs().max().item() for j in range(-(-top // chunk))]
+    return min(errs) if errs else 0.0
+
+
+def one(src: str, iters: int) -> dict:
+    """Time the tree at ``src`` (this process imports it)."""
+    sys.path.insert(0, os.path.abspath(src))
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.launch.timing import device_ms
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_compare: needs a GPU")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    small = torch.empty(8192, dtype=torch.bfloat16, device=dev)
+    out = {"src": src, "floor_ms": device_ms(small.zero_, iters=iters)}
+    for name, (B, Hq, Hk, D, S, lens) in COMPARE_SHAPES.items():
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q, kc, vc = randn(B, Hq, D), randn(B, S, Hk, D), randn(B, S, Hk, D)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        o = torch.empty_like(q)
+
+        def atom():
+            ops.decode_attention_atom(q, kc, vc, lens_t, o, start=0,
+                                      num_rows=B * Hk)
+        ms = device_ms(atom, iters=iters, flush=flush)
+        want = ref.decode_attention_ref(q, kc, vc, lens_t)
+        err = (o.float() - want.float()).abs().max().item()
+        if not err <= headline_limit(want):
+            raise SystemExit(f"decode_compare: {src} {name}: err {err} > "
+                             f"{headline_limit(want)}")
+        lens_t.zero_()
+        zero_ms = device_ms(atom, iters=iters, flush=flush)
+        out[name] = {"ms": ms, "zero_lens_ms": zero_ms, "max_abs_err": err,
+                     "err_limit": headline_limit(want),
+                     "took": (ops.plan(q, kc, vc) if hasattr(ops, "plan")
+                              else None)}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", action="append", default=[],
+                    help="NAME=SRC_DIR, a tree to time")
+    ap.add_argument("--order", default="",
+                    help="comma-separated NAMEs, the order of the runs")
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(one(args.one, args.iters)), flush=True)
+        return 0
+    trees = dict(t.split("=", 1) for t in args.tree)
+    for name in args.order.split(","):
+        # -P: the tree's src alone decides which repro_torch is imported
+        run = subprocess.run([sys.executable, "-P", os.path.abspath(__file__),
+                              "--one", trees[name], "--iters",
+                              str(args.iters)],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return 1
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": name, **rec}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,8 +20,10 @@ from repro_torch.kernels.atom_matmul import ops as matmul_ops
 from repro_torch.kernels.atom_matmul.ref import matmul_atom_ref, matmul_ref
 from repro_torch.kernels.atoms import schedule, tile_count
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch.decode_compare import dropped_split_err, headline_limit
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import transformer
 from repro_torch.models.common import tree_map
@@ -69,6 +71,112 @@ def test_decode_kernel_random_shapes(cuda, seed, dtype):
     want = decode_attention_ref(q, kc, vc, lens)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     assert torch.equal(got, decode_ops.decode_attention(q, kc, vc, lens))
+
+
+# S ranges whose 64-key blocks cap the split count at 1, 2, 4 and 8
+SPLIT_S = {1: (1, 64), 2: (65, 192), 4: (193, 448), 8: (449, 2100)}
+
+
+def _boundary_lens(rng, B, S, chunk):
+    """Lengths on and around the split boundaries, 0 and S among them."""
+    pool = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk, S - 1, S,
+            int(rng.integers(0, S + 1))]
+    return [min(max(int(x), 0), S) for x in rng.choice(pool, B)]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
+def test_decode_split_kernel_random_shapes(cuda, nsplit, D):
+    """The bf16 split-KV kernel at every split count, lens on the split
+    boundaries: values against the plain version and the split plain
+    version, atoms at n = 1, 3, R in permuted order bit-equal, and an atom
+    on a sentinel writes only its rows."""
+    rng = np.random.default_rng(300 + 10 * nsplit + D)
+    B, Hk = int(rng.integers(1, 5)), int(rng.integers(1, 5))
+    G = int(rng.choice([1, 4, 12, 20]))           # 20: two passes of 16 heads
+    S = int(rng.integers(*SPLIT_S[nsplit]))
+    q = _randn(rng, (B, Hk * G, D), torch.bfloat16, cuda)
+    kc = _randn(rng, (B, S, Hk, D), torch.bfloat16, cuda)
+    vc = _randn(rng, (B, S, Hk, D), torch.bfloat16, cuda)
+    p = decode_ops.plan(q, kc, vc)
+    assert p["route"] == "split" and p["nsplit"] == nsplit
+    lens = torch.tensor(_boundary_lens(rng, B, S, p["chunk"]),
+                        dtype=torch.int32, device=cuda)
+    got = decode_ops.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    for want in (decode_attention_ref(q, kc, vc, lens),
+                 decode_attention_split_ref(q, kc, vc, lens, nsplit,
+                                            p["chunk"])):
+        assert (got.float() - want.float()).abs().max().item() \
+            <= TOL[torch.bfloat16]
+    assert bool((got[lens == 0] == 0).all())
+    R = B * Hk
+    for n in (3, R):
+        order = tuple(int(i) for i in rng.permutation(min(n, R)))
+        assert torch.equal(got, decode_ops.decode_attention(
+            q, kc, vc, lens, n_atoms=n, order=order))
+    start, num = R // 3, max(1, R // 3)
+    o = torch.full_like(q, 7.0)
+    decode_ops.decode_attention_atom(q, kc, vc, lens, o, start=start,
+                                     num_rows=num)
+    og, gg = o.view(R, G, D), got.view(R, G, D)
+    assert torch.equal(og[start:start + num], gg[start:start + num])
+    assert bool((og[:start] == 7.0).all()) and bool(
+        (og[start + num:] == 7.0).all())
+
+
+def test_decode_split_kernel_one_slot_long_context(cuda):
+    """One slot of llama3-8b at its 8192-token context: 8 rows, 8 splits."""
+    rng = np.random.default_rng(9)
+    q = _randn(rng, (1, 32, 128), torch.bfloat16, cuda)
+    kc = _randn(rng, (1, 8192, 8, 128), torch.bfloat16, cuda)
+    vc = _randn(rng, (1, 8192, 8, 128), torch.bfloat16, cuda)
+    assert decode_ops.plan(q, kc, vc)["nsplit"] == 8
+    lens = torch.tensor([8000], dtype=torch.int32, device=cuda)
+    got = decode_ops.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, kc, vc, lens)
+    # outputs here are ~0.07 at most: held to two bf16 steps of the largest,
+    # below what a kernel that dropped one of the 8 splits would read
+    limit = headline_limit(want)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+    assert dropped_split_err(q, kc, vc, lens, 1024) > limit
+    assert torch.equal(got, decode_ops.decode_attention(
+        q, kc, vc, lens, n_atoms=8, order=(7, 0, 6, 1, 5, 2, 4, 3)))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_kernel_refuses_unaligned_pitch(cuda, D):
+    """Caches whose key pitch is not a multiple of 16 bytes, which neither
+    TMA nor 16-byte loads address, raise before any launch."""
+    rng = np.random.default_rng(D)
+    B, S, Hk, G = 3, 333, 2, 4
+    wide = _randn(rng, (B, S, Hk * D + 3), torch.bfloat16, cuda)
+    kc = wide[:, :, 1:1 + Hk * D].unflatten(-1, (Hk, D))
+    q = _randn(rng, (B, Hk * G, D), torch.bfloat16, cuda)
+    lens = torch.tensor([333, 0, 65], dtype=torch.int32, device=cuda)
+    before = decode_ops.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decode_ops.decode_attention(q, kc, kc, lens)
+    assert decode_ops.launches == before
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
+def test_decode_split_kernel_clusters_fit(cuda, D, nsplit):
+    """The card runs clusters of every split count (at most two CTAs an
+    SM), and the schedule puts every row's cluster in flight at once."""
+    n = decode_ops.max_active_clusters(D, nsplit)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 0 < n and n * nsplit <= 2 * sms
+    assert decode_ops.cluster_fit(cuda, D)[decode_ops.SPLITS.index(nsplit)] == n
+    for B, Hk, S in ((4, 8, 2048), (1, 8, 8192), (8, 8, 2048)):
+        q = torch.zeros(B, 4 * Hk, D, dtype=torch.bfloat16, device=cuda)
+        kc = torch.zeros(B, S, Hk, D, dtype=torch.bfloat16, device=cuda)
+        p = decode_ops.plan(q, kc, kc)
+        fit = decode_ops.cluster_fit(cuda, D)
+        assert p["nsplit"] == 1 or \
+            fit[decode_ops.SPLITS.index(p["nsplit"])] >= B * Hk
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
