@@ -9,18 +9,23 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (values, atom order-freedom,
 rows / tiles outside an atom untouched, the route each case took: for decode
 attention every split count of the split-KV kernel; key pitches it cannot
-take are refused), times them beside their bound (decode attention at two
-shapes), then drives two paths, each with the kernels' launch counts set to 0
-just before and read just after: it serves full-size ``llama3-8b`` and
-``olmo-1b`` (random weights from a seed) through
-``repro_torch.launch.serve.serve`` (decode and flash attention), and runs the atom-count sweep
-``repro_torch.launch.atoms.sweep`` (the atomized matmul at the full-width
-``llama3-8b`` projections, and flash attention).  Every phase prints one JSON
-line; any failure ends the run with a non-zero exit code.  The last line is
+take are refused; head_dim 256 and sliding windows), times them beside their
+bound (decode attention at three shapes, flash attention at two), then
+drives the paths, each with the kernels' launch counts set to 0 just before
+and read just after: it serves full-size ``llama3-8b``, ``olmo-1b``,
+``qwen2-moe-a2.7b`` (MoE), ``recurrentgemma-9b`` (RG-LRU and local attention
+with a window of 2048, prompts past it) and ``xlstm-1.3b`` (no attention)
+with random weights from a seed through ``repro_torch.launch.serve.serve``
+(decode and flash attention, as many launches as the config has attention
+layers), and runs the atom-count sweep ``repro_torch.launch.atoms.sweep``
+(the atomized matmul at the full-width ``llama3-8b`` projections, and flash
+attention).  Every phase prints one JSON line; any failure ends the run
+with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``--profile`` adds a ``profile`` line: device time by kernel over a prefill
-and a few decode steps of ``llama3-8b``.
+``--profile`` adds a ``profile`` line for each of ``llama3-8b``,
+``qwen2-moe-a2.7b``, ``recurrentgemma-9b`` and ``xlstm-1.3b``: device time by
+kernel over a prefill and a few decode steps.
 
 ``--rehearse`` walks the same phases on the CPU at toy sizes with the plain
 versions, to find faults in this script without a card.  It measures nothing
@@ -57,10 +62,39 @@ from repro_torch.launch.decode_compare import (  # noqa: E402
 # output between 2 and 4, which short rows reach).
 TOL = {("decode", "float32"): 2e-5, ("decode", "bfloat16"): 3e-2,
        ("flash", "float32"): 2e-3, ("flash", "bfloat16"): 3e-2}
+# bf16 flash attention against its plain version, query row by query row:
+# the max abs error over a row's heads and head dims, over that row's largest
+# |output|.  Both sides round an f32 result to bf16 once and the kernel
+# rounds P to bf16, so a row differs by about one bf16 step at its largest
+# output (2^-8 to 2^-7 of it); the limit is two steps.  The absolute limit
+# above cannot see a fault in a long row: over a window of 2048 keys the
+# outputs are about N(0, e/2048), a row's largest ~0.15, and leaving 64 of
+# its keys out moves them by less than 3e-2.  ``flash_headline`` plants such
+# faults and fails unless they read above this limit.
+FLASH_REL_TOL = 2.0 ** -6
+# keys of a KV block on flash attention's bf16 path (``TBK`` in
+# csrc/flash_attention.cu): the planted fault drops one at a window's start
+KV_BLOCK = 64
 # full-depth bf16 model, kernels against plain attention: the attention
 # outputs differ by single bf16 roundings, which the layers above carry on;
-# logits are O(1), and the limit is a tenth of that.
+# logits are O(1), and the limit is a tenth of that.  An MoE model's plain
+# pass replays the kernel pass's routing (a rounding can flip a top-k
+# choice, which is no fault of a kernel).
 LOGIT_TOL = 0.1
+# timed shapes beside ``DECODE_SHAPES`` (full size, then the rehearsal's
+# toy): two slots of recurrentgemma-9b on its ring of 2048 keys, one full
+# and one not (MQA: 16 query heads on one KV head, head_dim 256)
+HYBRID_DECODE_SHAPES = {
+    "recurrentgemma": ((2, 16, 1, 256, 2048, [2048, 1500]),
+                       (2, 4, 1, 16, 64, [64, 30])),
+}
+# flash attention's timed shapes (B, S, Hq, Hk, D, window): a llama3-8b
+# prompt of 1000 tokens; a recurrentgemma-9b prompt of 4096 within its
+# window of 2048
+FLASH_SHAPES = {
+    "serving": ((1, 1000, 32, 8, 128, 0), (1, 40, 4, 2, 16, 0)),
+    "recurrentgemma": ((1, 4096, 16, 1, 256, 2048), (1, 70, 4, 1, 16, 32)),
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -200,22 +234,48 @@ def check_decode_refuses(torch, dev, gen, *, B, Hq, Hk, D, S, lens):
     return None
 
 
-def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True):
+def row_rel_err(got, want):
+    """[B,Sq]: for each query row, the max abs difference over its heads and
+    head dims over the row's largest |want| (0 where both are all zeros)."""
+    d = (got.float() - want.float()).abs().amax(dim=(2, 3))
+    return d / want.float().abs().amax(dim=(2, 3)).clamp_min(1e-30)
+
+
+def flash_misses(got, want, dtype) -> tuple:
+    """(what ``got`` reads against ``want``, its limit): bf16 by
+    ``row_rel_err``, f32 by max abs error."""
+    if dtype == "bfloat16":
+        return row_rel_err(got, want).max().item(), FLASH_REL_TOL
+    return (got.float() - want.float()).abs().max().item(), TOL[("flash", dtype)]
+
+
+def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True,
+                window=0):
     from repro_torch.kernels.flash_attention import ops, ref
     dt = getattr(torch, dtype)
     q = _randn(torch, gen, (B, Sq, Hq, D), dt, dev)
     k = _randn(torch, gen, (B, Sk, Hk, D), dt, dev)
     v = _randn(torch, gen, (B, Sk, Hk, D), dt, dev)
-    want = ref.attention_ref(q, k, v, causal=causal)
-    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
     err = (got.float() - want.float()).abs().max().item()
+    rel, rel_limit = flash_misses(got, want, dtype)
+    what = (f"flash_attention {dtype} B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hk={Hk} "
+            f"D={D} causal={causal} window={window}")
     if not math.isfinite(err) or err > TOL[("flash", dtype)]:
-        fail(f"flash_attention {dtype} B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hk={Hk} "
-             f"D={D} causal={causal}: max abs err {err} > "
-             f"{TOL[('flash', dtype)]}")
-    a3 = ops.flash_attention(q, k, v, causal=causal, n_atoms=3)
+        fail(f"{what}: max abs err {err} > {TOL[('flash', dtype)]}")
+    if not rel <= rel_limit:
+        fail(f"{what}: reads {rel} against its plain version, > {rel_limit}")
+    unwindowed = None
+    if window:      # the kernel run without its window must miss the limit
+        unwindowed, _ = flash_misses(
+            ops.flash_attention(q, k, v, causal=causal), want, dtype)
+        if not unwindowed > rel_limit:
+            fail(f"{what}: the kernel without its window reads {unwindowed}, "
+                 f"within the limit {rel_limit}")
+    a3 = ops.flash_attention(q, k, v, causal=causal, n_atoms=3, window=window)
     p3 = ops.flash_attention(q, k, v, causal=causal, n_atoms=3,
-                             order=(1, 2, 0))
+                             order=(1, 2, 0), window=window)
     if not (torch.equal(a3, p3) and _same(torch, a3, got)):
         fail("flash_attention: atoms do not compose bit for bit")
     bq = ops.BLOCK_Q
@@ -224,7 +284,7 @@ def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True):
     start, num = total // 3, max(1, total // 3)
     o = torch.full_like(q, 7.0)
     ops.flash_attention_atom(q, k, v, o, start=start, num_tiles=num,
-                             causal=causal)
+                             causal=causal, window=window)
     # tile t covers rows [qi*bq, (qi+1)*bq) of head bh = t // nqb
     tile_of = (torch.arange(B * Hq, device=dev)[:, None] * nqb
                + torch.arange(Sq, device=dev)[None, :] // bq)    # [B*Hq, Sq]
@@ -233,7 +293,9 @@ def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True):
     if not (torch.equal(o[inside], got[inside])
             and bool((o[~inside] == 7.0).all())):
         fail("flash_attention_atom wrote outside its tiles")
-    return err
+    return {"max_abs_err": err, "err_limit": TOL[("flash", dtype)],
+            "row_err": rel, "row_err_limit": rel_limit,
+            "unwindowed_row_err": unwindowed}
 
 
 def _mm_err(torch, got, want, dtype):
@@ -351,7 +413,8 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
     which must lie below what a kernel that dropped one split would read."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    B, Hq, Hk, D, S, lens = DECODE_SHAPES[shape][flush is None]
+    B, Hq, Hk, D, S, lens = {**DECODE_SHAPES, **HYBRID_DECODE_SHAPES}[
+        shape][flush is None]
     dt = torch.bfloat16
     q = _randn(torch, gen, (B, Hq, D), dt, dev)
     kc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
@@ -406,56 +469,95 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
             "l2": "cold (flushed before every launch)"}
 
 
-def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16"):
-    """Flash attention at the serving path's shape: one llama3-8b prompt of
-    1000 tokens, causal."""
+def causal_pairs(S: int, window: int = 0) -> int:
+    """Unmasked (query, key) pairs of causal self-attention over S tokens,
+    each query seeing at most its last ``window`` keys (0: all)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
+                   shape="serving"):
+    """Flash attention at a serving path's shape (``FLASH_SHAPES``), causal,
+    within the shape's window.  bf16 is held row by row to
+    ``FLASH_REL_TOL``; with a window, two planted faults must read above
+    that limit: the kernel run without the window, and the plain version
+    with the window's first KV block left out of every row whose window is
+    whole (the least such row counts)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, Hq, Hk, D = (1, 1000, 32, 8, 128) if real else (1, 40, 4, 2, 16)
+    B, S, Hq, Hk, D, W = FLASH_SHAPES[shape][0 if real else 1]
     dt = getattr(torch, dtype)
     q = _randn(torch, gen, (B, S, Hq, D), dt, dev)
     k = _randn(torch, gen, (B, S, Hk, D), dt, dev)
     v = _randn(torch, gen, (B, S, Hk, D), dt, dev)
-    want = ref.attention_ref(q, k, v, causal=True)
-    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q, k, v, causal=True, window=W)
+    got = ops.flash_attention(q, k, v, causal=True, window=W)
     err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL[("flash", dtype)]:
-        fail(f"flash_attention {dtype} at the serving shape: err {err}")
+        fail(f"flash_attention {dtype} at the {shape} shape: err {err}")
+    rel, rel_limit = flash_misses(got, want, dtype)
+    if not rel <= rel_limit:
+        fail(f"flash_attention {dtype} at the {shape} shape: reads {rel} "
+             f"against its plain version, > {rel_limit}")
+    faults = None
+    if W:
+        drop = min(KV_BLOCK, W // 2)
+        late = ref.attention_ref(q, k, v, causal=True, window=W - drop)
+        whole = torch.arange(S, device=dev) >= W - 1   # Sq == Sk
+        faults = {"no_window": flash_misses(
+                      ops.flash_attention(q, k, v, causal=True), want,
+                      dtype)[0],
+                  f"first_{drop}_keys_of_window_dropped":
+                      row_rel_err(late, want)[:, whole].min().item()}
+        if not min(faults.values()) > rel_limit:
+            fail(f"flash_attention at the {shape} shape: a planted fault "
+                 f"reads within the limit {rel_limit}: {faults}")
     # the kernel alone: one atom of every tile into an output made once, so
     # the memset of a fresh output is not timed
     o = torch.empty_like(q)
     one = lambda: ops.flash_attention_atom(q, k, v, o, start=0,
                                            num_tiles=ops.tile_space(q),
-                                           causal=True)
+                                           causal=True, window=W)
     ms = time_ms(torch, one, iters=iters)
     host_ms = enqueue_ms(torch, one)
     if not _same(torch, o, got):
-        fail(f"flash_attention_atom {dtype} at the serving shape differs "
+        fail(f"flash_attention_atom {dtype} at the {shape} shape differs "
              f"from the entry point")
-    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True),
+    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True,
+                                                        window=W),
                        iters=iters)
     q4, k4, v4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                                 enable_gqa=True)
+    if W:       # the band as a boolean mask (True: attend)
+        i = torch.arange(S, device=dev)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+        lib = lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=band, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
     lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max().item()
     if not lib_err <= 3e-2:
         fail(f"library yardstick disagrees with the plain version: {lib_err}")
     library_ms = time_ms(torch, lib, iters=iters)
     esz = q.element_size()
-    pairs = S * (S + 1) // 2                       # unmasked (query, key) pairs
+    pairs = causal_pairs(S, W)                     # unmasked (query, key) pairs
     flops = 4 * B * Hq * D * pairs
     n_bytes = (2 * B * S * Hq * D + 2 * B * S * Hk * D) * esz
     t_bytes = n_bytes / H100.hbm_bw * 1e3
     t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
                      else H100.peak_flops_f32) * 1e3
     return {"shape": {"B": B, "Sq": S, "Sk": S, "Hq": Hq, "Hk": Hk, "D": D,
-                      "causal": True},
+                      "causal": True, "window": W},
             "dtype": dtype, "max_abs_err": err,
-            "err_limit": TOL[("flash", dtype)], "ms": ms,
+            "err_limit": TOL[("flash", dtype)], "row_err": rel,
+            "row_err_limit": rel_limit, "planted_faults": faults, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "enqueue_ms": host_ms,
             "bytes": n_bytes, "flops": flops,
+            "ctas_per_sm": (ops.ctas_per_sm(D, dt) if real else None),
             "l2": "warm (the projections have just written q, k, v)"}
 
 
@@ -491,6 +593,14 @@ def kernels_phase(torch, dev, real: bool):
                      route="split", nsplit=4),
                 dict(B=2, Hq=40, Hk=2, D=128, S=1000, dtype="bfloat16", lens=[128, 1000],
                      route="split", nsplit=8)]
+        # head_dim 256, MQA (recurrentgemma-9b): its ring of 2048 keys full
+        # and not, a split count set by a short cache, f32
+        dec += [dict(B=2, Hq=16, Hk=1, D=256, S=2048, dtype="bfloat16",
+                     lens=[2048, 700], route="split"),
+                dict(B=4, Hq=16, Hk=1, D=256, S=300, dtype="bfloat16",
+                     lens=[0, 127, 129, 300], route="split", nsplit=4),
+                dict(B=3, Hq=16, Hk=1, D=256, S=2048, dtype="float32",
+                     lens=[2048, 1, 0], route="f32")]
         refused = [dict(B=3, Hq=16, Hk=4, D=128, S=500, lens=[500, 0, 257]),
                    dict(B=2, Hq=8, Hk=2, D=64, S=333, lens=[65, 333])]
         fl = [dict(B=1, Sq=37, Sk=37, Hq=32, Hk=8, D=128, dtype="bfloat16"),
@@ -514,6 +624,20 @@ def kernels_phase(torch, dev, real: bool):
                dict(B=2, Sq=77, Sk=333, Hq=12, Hk=4, D=128, dtype="bfloat16",
                     causal=False),
                dict(B=1, Sq=130, Sk=70, Hq=4, Hk=2, D=128, dtype="bfloat16")]
+        # sliding windows (the KV loop starts at the window's first block)
+        # and head_dim 256 (recurrentgemma-9b: MQA, window 2048)
+        fl += [dict(B=1, Sq=1000, Sk=1000, Hq=32, Hk=8, D=128,
+                    dtype="bfloat16", window=256),
+               dict(B=2, Sq=500, Sk=500, Hq=8, Hk=2, D=64, dtype="float32",
+                    window=100),
+               dict(B=1, Sq=4096, Sk=4096, Hq=16, Hk=1, D=256,
+                    dtype="bfloat16", window=2048),
+               dict(B=1, Sq=100, Sk=612, Hq=16, Hk=1, D=256, dtype="bfloat16",
+                    window=128),
+               dict(B=2, Sq=300, Sk=300, Hq=16, Hk=1, D=256, dtype="bfloat16"),
+               dict(B=1, Sq=77, Sk=333, Hq=16, Hk=1, D=256, dtype="bfloat16",
+                    causal=False),
+               dict(B=1, Sq=200, Sk=200, Hq=4, Hk=1, D=256, dtype="float32")]
         # the reference's test shapes (tests/test_kernels.py) at block 128;
         # the llama3-8b projections of a 1000-token prefill and of a
         # 4-slot decode step at the default block 256
@@ -546,7 +670,9 @@ def kernels_phase(torch, dev, real: bool):
         refused = [dict(B=2, Hq=4, Hk=2, D=16, S=70, lens=[0, 70])]
         fl = [dict(B=2, Sq=70, Sk=70, Hq=4, Hk=2, D=16, dtype="float32"),
               dict(B=1, Sq=20, Sk=90, Hq=4, Hk=1, D=16, dtype="bfloat16"),
-              dict(B=1, Sq=90, Sk=50, Hq=2, Hk=2, D=16, dtype="float32")]
+              dict(B=1, Sq=90, Sk=50, Hq=2, Hk=2, D=16, dtype="float32"),
+              dict(B=1, Sq=70, Sk=70, Hq=4, Hk=1, D=16, dtype="bfloat16",
+                   window=32)]
         mm = [dict(M=257, N=129, K=65, dtype="float32"),
               dict(M=40, N=300, K=64, dtype="bfloat16", bm=256,
                    route="guarded"),
@@ -568,9 +694,8 @@ def kernels_phase(torch, dev, real: bool):
                       "key_pitch": c["Hk"] * c["D"] + 3,
                       "raised": check_decode_refuses(torch, dev, gen, **c)})
     for c in fl:
-        err = check_flash(torch, dev, gen, **c)
-        cases.append({"kernel": "flash_attention", **c, "max_abs_err": err,
-                      "err_limit": TOL[("flash", c["dtype"])]})
+        cases.append({"kernel": "flash_attention", **c,
+                      **check_flash(torch, dev, gen, **c)})
     for c in mm:
         err, took, cta = check_matmul(torch, dev, gen, **c)
         cases.append({"kernel": "atom_matmul", **c, "path": took,
@@ -581,7 +706,11 @@ def kernels_phase(torch, dev, real: bool):
     k1 = decode_headline(torch, dev, gen, flush, iters=30 if real else 1)
     k1_long = decode_headline(torch, dev, gen, flush, iters=30 if real else 1,
                               shape="long_context")
+    k1_ring = decode_headline(torch, dev, gen, flush,
+                              iters=30 if real else 1, shape="recurrentgemma")
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
+    k2_window = flash_headline(torch, dev, gen, iters=10 if real else 1,
+                               real=real, shape="recurrentgemma")
     k2_f32 = flash_headline(torch, dev, gen, iters=10 if real else 1,
                             real=real, dtype="float32")
     k3 = matmul_headline(torch, dev, gen, flush, iters=20 if real else 1,
@@ -590,13 +719,21 @@ def kernels_phase(torch, dev, real: bool):
     if real:
         torch.cuda.synchronize()
     emit("kernels", cases=cases, decode_attention=k1,
-         decode_attention_long_context=k1_long, flash_attention=k2,
+         decode_attention_long_context=k1_long,
+         decode_attention_ring_d256=k1_ring, flash_attention=k2,
+         flash_attention_window_d256=k2_window,
          flash_attention_float32=k2_f32, atom_matmul=k3,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
                   "decode: atoms (n=R) in reversed order bit-equal to n=1",
                   "rows / tiles outside an atom untouched",
                   "the route (and decode's split count) each case took",
                   "decode: key pitches the kernels cannot address raise",
+                  "flash bf16: each query row within 2^-6 of its max|output|"
+                  " (f32: max abs error)",
+                  "flash: with a window, the kernel without it reads above "
+                  "that limit",
+                  "flash windowed headline: a window started one KV block "
+                  "late reads above that limit in every whole-window row",
                   "decode headlines: max abs error within 2^-6 of max|output|,"
                   " below what one dropped split reads"])
     return k1, k2, k3
@@ -659,17 +796,49 @@ def plain_attention():
         d_ops.decode_attention_atom, f_ops.flash_attention_atom = saved
 
 
+@contextlib.contextmanager
+def moe_routing(log, replay: bool):
+    """Harness-only: record every MoE layer's expert choices into ``log`` in
+    call order, or replay them in that order (``replay``), so that a plain
+    pass routes its tokens as the kernel pass did."""
+    from repro_torch.models import moe
+    saved = moe.apply_moe
+    it = iter(list(log)) if replay else None
+
+    def apply_moe(params, x, cfg, **kw):
+        if replay:
+            return saved(params, x, cfg, expert_ids=next(it))
+        out, aux, ids = saved(params, x, cfg, return_ids=True)
+        log.append(ids)
+        return out, aux
+
+    moe.apply_moe = apply_moe
+    try:
+        yield log
+    finally:
+        moe.apply_moe = saved
+
+
+def routing_flips(torch, a, b) -> int:
+    """Expert choices (token, slot of top-k) that differ between two
+    recorded routings, as sets per token."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).sum())
+               for x, y in zip(a, b))
+
+
 def profile_phase(torch, dev, cfg, params, arch: str) -> None:
     """``--profile``: device time by kernel over one 1000-token prefill and
-    eight decode steps of 4 slots, from ``torch.profiler``."""
+    eight decode steps of 4 slots, from ``torch.profiler``; a model with a
+    sliding window takes a prompt of 2100 tokens and positions past it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer
-    B, L, plen = 4, 2048, 1000
+    windowed = cfg.hybrid is not None and cfg.hybrid.window > 0
+    B, L, plen = (4, 4608, 2100) if windowed else (4, 2048, 1000)
     caches = transformer.init_caches(cfg, B, L, device=dev)
     toks = torch.randint(2, cfg.vocab_size, (1, plen), device=dev)
     last = torch.randint(2, cfg.vocab_size, (B,), device=dev)
-    pos = torch.tensor([300, 700, 1000, 1040], device=dev)
+    pos = torch.tensor([300, 700, 1000, 1040], device=dev) + (plen - 1000)
 
     def window(kind):
         if kind == "prefill":
@@ -699,12 +868,13 @@ def profile_phase(torch, dev, cfg, params, arch: str) -> None:
                      "device_idle_share": max(0.0, 1 - busy / wall_ms),
                      "top": [{"kernel": k[:60], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
-    emit("profile", arch=arch, window={"prefill": "1 prompt of 1000 tokens",
+    emit("profile", arch=arch, window={"prefill": f"1 prompt of {plen} tokens",
                                        "decode": "8 steps, 4 slots"}, **out)
 
 
 def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
-                max_len, max_new, with_profile: bool = False):
+                max_len, max_new, with_profile: bool = False,
+                min_prompt: int = 4, check_len: int = 200):
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
@@ -721,6 +891,9 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
     if real:
         torch.cuda.synchronize()
     init_s = time.time() - t0
+    init_peak = torch.cuda.max_memory_allocated() if real else None
+    if real:        # the serving path's own peak, without init's f32 draws
+        torch.cuda.reset_peak_memory_stats()
 
     # the main path, through the launcher's entry point, counts set to 0 first
     reset_counts()
@@ -728,11 +901,13 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
         t0 = time.time()
         done, lats = serve(cfg, n_requests=n_requests, max_slots=max_slots,
                            max_len=max_len, max_new=max_new, seed=0,
-                           verbose=False, device=dev, params=params)
+                           verbose=False, device=dev, params=params,
+                           min_prompt=min_prompt)
         if real:
             torch.cuda.synchronize()
         serve_s = time.time() - t0
     launches = read_counts()
+    serve_peak = torch.cuda.max_memory_allocated() if real else None
 
     if len(done) != n_requests:
         fail(f"{arch}: {len(done)} of {n_requests} requests finished")
@@ -744,18 +919,23 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
             fail(f"{arch}: token out of range in request {r.rid}")
         if r.t_first_token is None or r.t_finish is None:
             fail(f"{arch}: request {r.rid} has no timestamps")
-    want = {"flash_attention": calls["prefill"] * cfg.n_layers,
-            "decode_attention": calls["decode_step"] * cfg.n_layers,
+    # one launch of each attention kernel per attention layer a prefill /
+    # decode step (none in a model without attention)
+    n_attn = transformer.attention_layers(cfg)
+    want = {"flash_attention": calls["prefill"] * n_attn,
+            "decode_attention": calls["decode_step"] * n_attn,
             "atom_matmul": 0}           # not on the serving path
-    if real and (launches != want or launches["flash_attention"] == 0
-                 or launches["decode_attention"] == 0):
+    if real and (launches != want or (n_attn and (
+            launches["flash_attention"] == 0
+            or launches["decode_attention"] == 0))):
         fail(f"{arch}: launch counts {launches} but the path implies {want}")
     if calls["prefill"] != n_requests or calls["decode_step"] == 0:
         fail(f"{arch}: {calls} engine calls for {n_requests} requests")
 
     # the path against itself: kernels vs plain attention, same params/prompt
+    # (an MoE model's plain pass on the kernel pass's routing)
     rng = np.random.default_rng(1)
-    plen = min(200, max_len // 2)
+    plen = min(check_len, max_len // 2)
     toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, (2, plen)),
                            device=dev)
     nxt = torch.as_tensor(rng.integers(2, cfg.vocab_size, (2,)), device=dev)
@@ -766,9 +946,25 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
         ld, _ = transformer.decode_step(params, cfg, nxt, pos, caches)
         return lp.float(), ld.float()
 
-    lp_k, ld_k = run()
-    with plain_attention():
-        lp_p, ld_p = run()
+    routing = None
+    if cfg.moe is None:
+        lp_k, ld_k = run()
+        with plain_attention():
+            lp_p, ld_p = run()
+    else:
+        with moe_routing([], replay=False) as kernel_ids:
+            lp_k, ld_k = run()
+        with plain_attention(), moe_routing(kernel_ids, replay=True):
+            lp_p, ld_p = run()
+        with plain_attention(), moe_routing([], replay=False) as own_ids:
+            lp_o, ld_o = run()
+        routing = {"replayed": True, "choices": sum(int(x.numel())
+                                                    for x in kernel_ids),
+                   "flips_unreplayed": routing_flips(torch, kernel_ids,
+                                                     own_ids),
+                   "logit_err_unreplayed": max(
+                       (lp_k - lp_o).abs().max().item(),
+                       (ld_k - ld_o).abs().max().item())}
     for name, a, b in (("prefill", lp_k, lp_p), ("decode", ld_k, ld_p)):
         if a.shape != (2, cfg.vocab_size) or not bool(torch.isfinite(a).all()):
             fail(f"{arch}: {name} logits not finite or of shape {tuple(a.shape)}")
@@ -783,14 +979,16 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
          d_model=cfg.d_model, dtype=cfg.dtype, requests=len(done),
          max_slots=max_slots, max_len=max_len, tokens=tokens,
          prompt_tokens=int(sum(len(r.tokens) for r in done)),
+         longest_prompt=int(max(len(r.tokens) for r in done)),
          init_seconds=init_s, seconds=serve_s, tokens_per_s=tokens / serve_s,
          p50_latency_s=float(np.percentile(lats, 50)),
          prefills=calls["prefill"], decode_steps=calls["decode_step"],
-         launches=launches,
+         attention_layers=n_attn, launches=launches,
          logit_err_vs_plain={"prefill": err_p, "decode": err_d,
-                             "limit": LOGIT_TOL,
-                             "logit_abs_max": lp_p.abs().max().item()},
-         peak_memory_bytes=(torch.cuda.max_memory_allocated() if real else None))
+                             "limit": LOGIT_TOL, "prompt_tokens": plen,
+                             "logit_abs_max": lp_p.abs().max().item(),
+                             "moe_routing": routing},
+         peak_memory_bytes=serve_peak, init_peak_memory_bytes=init_peak)
     if with_profile and real:
         profile_phase(torch, dev, cfg, params, arch)
     del params
@@ -862,11 +1060,31 @@ def main(argv) -> int:
 
     sizes = (dict(n_requests=8, max_slots=4, max_len=2048, max_new=16) if real
              else dict(n_requests=3, max_slots=2, max_len=32, max_new=4))
-    launches = serve_phase(torch, dev, "llama3-8b", real=real,
-                           with_profile="--profile" in argv, **sizes)
+    prof = "--profile" in argv
+    runs = [serve_phase(torch, dev, "llama3-8b", real=real,
+                        with_profile=prof, **sizes)]
     sizes = (dict(n_requests=4, max_slots=2, max_len=512, max_new=8) if real
              else dict(n_requests=2, max_slots=1, max_len=32, max_new=3))
-    serve_phase(torch, dev, "olmo-1b", real=real, **sizes)
+    runs.append(serve_phase(torch, dev, "olmo-1b", real=real, **sizes))
+    # the MoE, hybrid and recurrent decoders: 2 slots, 8 new tokens;
+    # recurrentgemma's prompts run past its window of 2048, so the windowed
+    # flash kernel and the ring buffer's wrap run, and its kernel-vs-plain
+    # check uses such a prompt too
+    sizes = (dict(n_requests=4, max_slots=2, max_len=512, max_new=8) if real
+             else dict(n_requests=3, max_slots=2, max_len=32, max_new=3))
+    runs.append(serve_phase(torch, dev, "qwen2-moe-a2.7b", real=real,
+                            with_profile=prof, **sizes))
+    sizes = (dict(n_requests=3, max_slots=2, max_len=4608, max_new=8,
+                  min_prompt=2100, check_len=2100) if real
+             else dict(n_requests=3, max_slots=2, max_len=80, max_new=3,
+                       min_prompt=34, check_len=36))
+    runs.append(serve_phase(torch, dev, "recurrentgemma-9b", real=real,
+                            with_profile=prof, **sizes))
+    sizes = (dict(n_requests=3, max_slots=2, max_len=512, max_new=8) if real
+             else dict(n_requests=3, max_slots=2, max_len=32, max_new=3))
+    runs.append(serve_phase(torch, dev, "xlstm-1.3b", real=real,
+                            with_profile=prof, **sizes))
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     launches["atom_matmul"] = atoms_phase(torch, dev, real)["atom_matmul"]
 
     if rehearse:

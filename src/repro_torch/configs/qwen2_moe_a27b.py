@@ -1,8 +1,8 @@
 """qwen2-moe-a2.7b — MoE with 60 routed experts (top-4) + 4 shared experts
 [hf:Qwen/Qwen1.5-MoE-A2.7B].
 
-Expert parallelism over the ``model`` axis (60 experts); the MoE block is not
-ported yet.
+Expert parallelism over the ``model`` axis (60 experts) in the reference;
+the port serves it on one card (``repro_torch/models/moe.py``).
 """
 from repro_torch.configs.base import ArchConfig, MoEConfig
 

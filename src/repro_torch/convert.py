@@ -3,40 +3,38 @@
 Parameters cross as numpy arrays, leaf by leaf, with the same nested-dict
 paths and the same shapes (``wq [d,Hq,hd]``, ``wo [Hq,hd,d]``, ``mlp/wi
 [d,f]``, stacked ``[G, ...]`` under ``blocks``).  The caller turns the other
-side's leaves into numpy (``np.asarray(x, np.float32)``) first, so no type of
-another framework is ever seen here.
+side's leaves into numpy (``np.asarray(x)``, which keeps each leaf's dtype)
+first, so no type of another framework is ever seen here.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dtype_of
 
 PyTree = Any
 
 
-def from_jax_params(tree: PyTree, cfg: ArchConfig, *, device,
-                    dtype: Optional[torch.dtype] = None) -> PyTree:
-    """Nested dict of numpy arrays -> nested dict of tensors on ``device``,
-    floating leaves cast to ``dtype`` (default ``cfg.dtype``)."""
-    dt = dtype if dtype is not None else dtype_of(cfg.dtype)
+def _tensor(x: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype, as a writable copy.  A
+    bfloat16 array (numpy's extension dtype of that name) crosses bit for
+    bit."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(x.view(np.int16))).view(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
 
-    def leaf(x):
-        t = torch.from_numpy(np.array(x))            # a writable copy
-        if t.is_floating_point():
-            t = t.to(dt)
-        return t.to(device)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {str(k): walk(v) for k, v in node.items()}
-        return leaf(np.asarray(node))
-
-    return walk(tree)
+def from_jax_params(tree: PyTree, *, device) -> PyTree:
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``.
+    Every leaf keeps its own dtype: the leaves the other package keeps in
+    float32 under a bfloat16 config (the RG-LRU's decay, the mLSTM's and
+    sLSTM's gate biases) stay float32."""
+    if isinstance(tree, dict):
+        return {str(k): from_jax_params(v, device=device)
+                for k, v in tree.items()}
+    return _tensor(np.asarray(tree)).to(device)
 
 
 def to_numpy_tree(tree: PyTree) -> PyTree:

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of the C interface, and the head dims the attention kernels are
 # built for
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

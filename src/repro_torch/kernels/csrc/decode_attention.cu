@@ -49,7 +49,14 @@
 //     shared memory and summing in split order 0..nsplit-1 (deterministic),
 //     and writes them.  A second cluster barrier keeps
 //     every CTA's shared memory alive until its peers have read it;
-//   * 106 KB of shared memory at head_dim 128: two CTAs an SM.
+//   * 106 KB of shared memory at head_dim 128: two CTAs an SM.  At 256
+//     (RecurrentGemma's MQA: G = 16 heads on one KV row fill the 16 rows of
+//     a pass) a key row is four 64-column boxes, the ring two stages, 146 KB:
+//     one CTA an SM, whose 255-register budget holds the 128 accumulators
+//     and 64 Q fragment registers a consumer thread keeps.  A sliding-window
+//     layer's ring-buffer cache needs nothing more: softmax is order-free
+//     and RoPE is applied before caching, so the caller passes
+//     lens = min(pos + 1, window).
 // What holds it back (PERF.md): a fixed cost beyond launching at any length
 // (prologue, two cluster barriers, two merges), and, at a few dozen rows,
 // clusters of 8 that do not all fit the card at once.
@@ -72,11 +79,16 @@ constexpr int KEYS = 4;   // keys in flight per warp and iteration
 // N consecutive elements -> N floats, one vector load.
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    float4 t = *reinterpret_cast<const float4*>(p);
+    float4 u = *reinterpret_cast<const float4*>(p + 4);
+    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+    out[4] = u.x; out[5] = u.y; out[6] = u.z; out[7] = u.w;
+  } else if constexpr (N == 4) {
     float4 t = *reinterpret_cast<const float4*>(p);
     out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
   } else {
-    static_assert(N == 2, "2 or 4 elements a lane");
+    static_assert(N == 2, "2, 4 or 8 elements a lane");
     float2 t = *reinterpret_cast<const float2*>(p);
     out[0] = t.x; out[1] = t.y;
   }
@@ -261,7 +273,9 @@ struct SplitTile {
   static constexpr int NB = D / 64;                  // 64-column boxes a row
   static constexpr int BOX = KEY_BLOCK * 128;        // 64 keys x 128 bytes
   static constexpr int KV_BYTES = KEY_BLOCK * D * 2;     // a block of K or V
-  static constexpr int STAGES = 384 / D;             // 96 KB of ring
+  // 96 KB of ring up to head_dim 128; two stages (128 KB) at 256, so that
+  // a block loads while the one before it computes
+  static constexpr int STAGES = D == 256 ? 2 : 384 / D;
   // the CTA's partial O rows are padded by 8 floats, so that the float2
   // accesses of a warp's accumulator fragments are free of bank conflicts
   static constexpr int LDP = D + 8;
@@ -270,7 +284,17 @@ struct SplitTile {
   // rings to 1024 bytes
   static constexpr int SMEM =
       1024 + 2 * STAGES * KV_BYTES + PART * 4 + 2 * STAGES * 8;
+  // the consumer warps park their partials in the idle ring
+  static_assert(SPLIT_CONSUMERS * PART * 4 <= 2 * STAGES * KV_BYTES,
+                "the ring holds the warps' partials");
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
 };
+
+// CTAs an SM the split kernel is built for: two up to head_dim 128; one at
+// 256, whose 146 KB of shared memory and 128 accumulator registers a thread
+// (and 64 of Q fragments) leave room for no second
+template <int D>
+constexpr int split_ctas() { return D == 256 ? 1 : 2; }
 
 // byte offset, in a block that TMA wrote with 128-byte swizzle, of the
 // 16-byte chunk holding columns [col, col+8) of key row `row`
@@ -285,7 +309,7 @@ __device__ __forceinline__ void consumers_sync() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+__global__ void __launch_bounds__(SPLIT_THREADS, split_ctas<D>())
 decode_split_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __nv_bfloat16* __restrict__ q,
@@ -659,6 +683,9 @@ int launch_d(const void* q, const void* k, const void* v, const void* lens,
   const T* vp = static_cast<const T*>(v);
   const int* lp = static_cast<const int*>(lens);
   T* op = static_cast<T*>(o);
+  // heads a pass: up to 4; 2 at head_dim 256, whose partials of 4 heads
+  // would pass the 48 KB of static shared memory
+  constexpr int GMAX = D == 256 ? 2 : 4;
   if (G == 1)
     decode_attn_kernel<T, D, 1><<<num_rows, NTHREADS, 0, stream>>>(
         qp, kp, vp, lp, op, start, Hk, G, S, st, scale_log2e);
@@ -666,7 +693,7 @@ int launch_d(const void* q, const void* k, const void* v, const void* lens,
     decode_attn_kernel<T, D, 2><<<num_rows, NTHREADS, 0, stream>>>(
         qp, kp, vp, lp, op, start, Hk, G, S, st, scale_log2e);
   else
-    decode_attn_kernel<T, D, 4><<<num_rows, NTHREADS, 0, stream>>>(
+    decode_attn_kernel<T, D, GMAX><<<num_rows, NTHREADS, 0, stream>>>(
         qp, kp, vp, lp, op, start, Hk, G, S, st, scale_log2e);
   return (int)cudaGetLastError();
 }
@@ -690,6 +717,7 @@ extern "C" int decode_attention_max_active_clusters(int D, int nsplit) {
   if (nsplit < 1 || nsplit > MAX_SPLIT || (nsplit & (nsplit - 1))) return -1;
   if (D == 64) return max_active_clusters<64>(nsplit);
   if (D == 128) return max_active_clusters<128>(nsplit);
+  if (D == 256) return max_active_clusters<256>(nsplit);
   return -1;
 }
 
@@ -709,20 +737,26 @@ extern "C" int decode_attention_atom(
     void* stream) {
   if (num_rows <= 0) return 0;
   if (Hk <= 0 || R_total % Hk || start < 0 || start + num_rows > R_total ||
-      (D != 64 && D != 128))
+      (D != 64 && D != 128 && D != 256))
     return -1;
   const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && route == 0)
-    return D == 64
-        ? launch_d<float, 64>(q, k, v, lens, o, start, num_rows, Hk, G, S, st, s)
-        : launch_d<float, 128>(q, k, v, lens, o, start, num_rows, Hk, G, S, st, s);
+  if (dtype == 0 && route == 0) {
+#define DECODE_F32(DIM) \
+  launch_d<float, DIM>(q, k, v, lens, o, start, num_rows, Hk, G, S, st, s)
+    return D == 64 ? DECODE_F32(64) : D == 128 ? DECODE_F32(128)
+                                               : DECODE_F32(256);
+#undef DECODE_F32
+  }
   if (dtype == 1 && route == 1) {
     if (nsplit < 1 || nsplit > MAX_SPLIT || (nsplit & (nsplit - 1))) return -1;
     const int B = R_total / Hk;
-    return D == 64
-        ? launch_split<64>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, nsplit, st, s)
-        : launch_split<128>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, nsplit, st, s);
+#define DECODE_SPLIT(DIM)                                                   \
+  launch_split<DIM>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, nsplit, \
+                    st, s)
+    return D == 64 ? DECODE_SPLIT(64) : D == 128 ? DECODE_SPLIT(128)
+                                                 : DECODE_SPLIT(256);
+#undef DECODE_SPLIT
   }
   return -1;
 }

@@ -44,6 +44,14 @@
 //     registers, P goes through shared memory once for the second product;
 //     75 KB a block, two blocks an SM; shared rows are padded so the 16-byte
 //     reads of both products are free of bank conflicts;
+//   * a sliding window (window > 0, the reference model's
+//     `blocked_attention(window=)`, which the TPU kernel lacks) masks kpos <=
+//     qpos - window as well, and the KV loop starts at the block of the
+//     tile's first row's first visible key, so blocks left behind the window
+//     are never loaded either;
+//   * head_dim 256 (RecurrentGemma) runs the same bf16 design at one CTA an
+//     SM: Q 32 KB and a 2-stage K/V ring of 128 KB (161 KB), O += P V as one
+//     m64n256k16 a k-step, 128 accumulator registers a thread;
 //   * a row with no unmasked key gives zeros (l == 0 -> 1), never NaN.
 // What holds it back: one warpgroup a CTA, so the softmax of a block and its
 // products are serialised within a CTA (the two CTAs of an SM overlap them;
@@ -108,7 +116,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int start,
                   int n_qblocks, int Hq, int G, int Sq, int Sk, int causal,
-                  Strides st, float sm_scale) {
+                  int window, Strides st, float sm_scale) {
   constexpr int DP = D + 4;
   constexpr int NG = D / 64;   // 64-wide column groups of the output
   extern __shared__ __align__(16) float smem[];
@@ -144,11 +152,13 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // one past the last key any row of this tile may see
+  // one past the last key any row of this tile may see, and the first key
+  // the window lets its first row see
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, off + q_last + 1) : Sk;
+  const int k_lo = window > 0 ? max(0, off + q0 - window + 1) : 0;
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = k_lo / BK * BK; k0 < k_end; k0 += BK) {
     __syncthreads();   // the previous block's sK, sV, sP are no longer read
     stage_tile<T, D>(sK, kb, st.k_s, k0, BK, Sk, 1.f);
     stage_tile<T, D>(sV, vb, st.v_s, k0, BK, Sk, 1.f);
@@ -182,7 +192,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        valid[j] = kpos < Sk && (!causal || kpos <= qpos);
+        valid[j] = kpos < Sk && (!causal || kpos <= qpos) &&
+                   (window <= 0 || kpos > qpos - window);
         if (valid[j]) mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -283,21 +294,33 @@ struct TcTile {
 template <int D>
 __device__ __forceinline__ void pv_step(float (&acc)[D / 2],
                                         const unsigned (&a)[4], uint64_t db) {
-  if constexpr (D == 128)
+  if constexpr (D == 256)
+    wgmma_m64n256k16_rs<1>(acc, a, db, 1);
+  else if constexpr (D == 128)
     wgmma_m64n128k16_rs<1>(acc, a, db, 1);
   else
     wgmma_m64n64k16_rs<1>(acc, a, db, 1);
 }
 
+// CTAs an SM the bf16 kernel is built for: two up to head_dim 128; one at
+// 256, whose 161 KB of shared memory and 128 accumulator registers a thread
+// leave room for no second
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 2)
+constexpr int tc_ctas() { return D == 256 ? 1 : 2; }
+static_assert(TcTile<256>::SMEM <= 232448, "227 KB of shared memory a block");
+static_assert(smem_bytes<256>() <= 232448, "227 KB of shared memory a block");
+
+// WIN: a sliding window is applied (window > 0); the kernel without it is
+// compiled apart, so the window's tests cost the common case nothing
+template <int D, bool WIN>
+__global__ void __launch_bounds__(TC_THREADS, tc_ctas<D>())
 flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        __nv_bfloat16* __restrict__ o, int start, int num_tiles,
                        int n_qblocks, int Hq, int G, int Sq, int Sk,
-                       int causal, long long o_b, long long o_s, long long o_h,
-                       float scale_log2e) {
+                       int causal, int window, long long o_b, long long o_s,
+                       long long o_h, float scale_log2e) {
   using T = TcTile<D>;
   constexpr int NB = D / 64;       // 64-wide boxes of the head dim
   constexpr int KS = D / 16;       // k-steps of Q K^T
@@ -321,6 +344,8 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, off + q_last + 1) : Sk;
   const int nblocks = k_end > 0 ? (k_end + TBK - 1) / TBK : 0;
+  // the first block the window lets the tile's first row see
+  const int blk0 = WIN ? max(0, off + q0 - window + 1) / TBK : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < TSTAGES; ++s) {
@@ -341,7 +366,7 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
         tma_load_4d(sQ + j * T::BOX_Q, &map_q, qbar, 64 * j, h, q0, b);
       int stage = 0;
       uint32_t phase = 0;
-      for (int blk = 0; blk < nblocks; ++blk) {
+      for (int blk = blk0; blk < nblocks; ++blk) {
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], 2 * T::KV_BYTES);
 #pragma unroll
@@ -373,7 +398,7 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   mbar_wait(qbar, 0);
   int stage = 0;
   uint32_t phase = 0;
-  for (int blk = 0; blk < nblocks; ++blk) {
+  for (int blk = blk0; blk < nblocks; ++blk) {
     const int k0 = blk * TBK;
     mbar_wait(&full[stage], phase);
     const unsigned char* kt = sK + stage * T::KV_BYTES;
@@ -392,7 +417,8 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
 
     // scale, mask (only where the block touches an edge), online softmax
-    const bool edge = (k0 + TBK > Sk) || (causal && k0 + TBK - 1 > row_lo);
+    const bool edge = (k0 + TBK > Sk) || (causal && k0 + TBK - 1 > row_lo) ||
+                      (WIN && k0 < row_lo + 16 - window);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = row_lo + g + 8 * r;
@@ -404,7 +430,9 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
           float x = s[4 * nt + 2 * r + c] * scale_log2e;
           if (edge) {
             const int kpos = k0 + nt * 8 + 2 * tq + c;
-            if (kpos >= Sk || (causal && kpos > qpos)) x = -INFINITY;
+            if (kpos >= Sk || (causal && kpos > qpos) ||
+                (WIN && kpos <= qpos - window))
+              x = -INFINITY;
           }
           s[4 * nt + 2 * r + c] = x;
           mx = fmaxf(mx, x);
@@ -479,7 +507,7 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int start, int num_tiles, int n_qblocks, int B, int Hq, int G,
-                int Sq, int Sk, int causal, const Strides& st,
+                int Sq, int Sk, int causal, int window, const Strides& st,
                 cudaStream_t stream) {
   // [B, S, H, D] as 4-D maps {D, H, S, B}: boxes of 64 (D) x 1 head x rows
   const uint64_t esz = 2;
@@ -499,7 +527,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     const uint64_t vs[3] = {st.v_h * esz, st.v_s * esz, st.v_b * esz};
     if (int e = encode_bf16_map(&map_v, v, 4, dims, vs, box)) return e;
   }
-  auto kernel = flash_attn_bf16_kernel<D>;
+  auto kernel = window > 0 ? flash_attn_bf16_kernel<D, true>
+                            : flash_attn_bf16_kernel<D, false>;
   constexpr int smem = TcTile<D>::SMEM;   // above 48 KB: dynamic, opted in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -507,14 +536,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const float scale_log2e = 1.4426950408889634f / sqrtf((float)D);
   kernel<<<num_tiles, TC_THREADS, smem, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), start, num_tiles,
-      n_qblocks, Hq, G, Sq, Sk, causal, st.o_b, st.o_s, st.o_h, scale_log2e);
+      n_qblocks, Hq, G, Sq, Sk, causal, window, st.o_b, st.o_s, st.o_h,
+      scale_log2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int start,
            int num_tiles, int n_qblocks, int Hq, int G, int Sq, int Sk,
-           int causal, const Strides& st, cudaStream_t stream) {
+           int causal, int window, const Strides& st, cudaStream_t stream) {
   auto kernel = flash_attn_kernel<T, D>;
   constexpr int smem = smem_bytes<D>();   // above 48 KB: dynamic, opted in
   cudaError_t err = cudaFuncSetAttribute(
@@ -523,7 +553,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int start,
   kernel<<<num_tiles, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), start, n_qblocks, Hq, G,
-      Sq, Sk, causal, st, 1.0f / sqrtf((float)D));
+      Sq, Sk, causal, window, st, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -541,11 +571,14 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
   if (dtype == 1) {
     threads = TC_THREADS;
     if (D == 64) {
-      k = (const void*)flash_attn_bf16_kernel<64>;
+      k = (const void*)flash_attn_bf16_kernel<64, false>;
       smem = TcTile<64>::SMEM;
     } else if (D == 128) {
-      k = (const void*)flash_attn_bf16_kernel<128>;
+      k = (const void*)flash_attn_bf16_kernel<128, false>;
       smem = TcTile<128>::SMEM;
+    } else if (D == 256) {
+      k = (const void*)flash_attn_bf16_kernel<256, false>;
+      smem = TcTile<256>::SMEM;
     }
   } else if (dtype == 0) {
     threads = NTHREADS;
@@ -555,6 +588,9 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
     } else if (D == 128) {
       k = (const void*)flash_attn_kernel<float, 128>;
       smem = smem_bytes<128>();
+    } else if (D == 256) {
+      k = (const void*)flash_attn_kernel<float, 256>;
+      smem = smem_bytes<256>();
     }
   }
   if (k == nullptr) return -1;
@@ -568,14 +604,16 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
 
 // Tiles [start, start+num_tiles) of the flat tile space (B*Hq) x
 // ceil(Sq/BQ), written in place into o.  q, o: [B,Sq,Hq,D]; k, v:
-// [B,Sk,Hk,D]; strides in elements, last stride 1.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the CUDA error code of the launch (0 = success),
-// -1 for a shape the kernel does not take, or -2 if a tensor map cannot be
-// encoded.
+// [B,Sk,Hk,D]; strides in elements, last stride 1.  A query row at position
+// qpos = Sk - Sq + row sees key kpos if kpos <= qpos (causal) and kpos >
+// qpos - window (window > 0: a sliding window of `window` keys).  dtype:
+// 0 = float32, 1 = bfloat16.  Returns the CUDA error code of the launch
+// (0 = success), -1 for a shape the kernel does not take, or -2 if a tensor
+// map cannot be encoded.
 extern "C" int flash_attention_atom(
     const void* q, const void* k, const void* v, void* o, int start,
     int num_tiles, int n_qblocks, int B, int Hq, int G, int Sq, int Sk, int D,
-    int causal, int dtype,
+    int causal, int window, int dtype,
     long long q_b, long long q_s, long long q_h,
     long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h,
@@ -583,13 +621,15 @@ extern "C" int flash_attention_atom(
   if (num_tiles <= 0) return 0;
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, start, num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, st, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, start, num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, st, s);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, start, num_tiles, n_qblocks, B, Hq, G, Sq, Sk, causal, st, s);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, start, num_tiles, n_qblocks, B, Hq, G, Sq, Sk, causal, st, s);
+#define FLASH_ARGS q, k, v, o, start, num_tiles, n_qblocks
+#define FLASH_TAIL G, Sq, Sk, causal, window, st, s
+  if (dtype == 0 && D == 64) return launch<float, 64>(FLASH_ARGS, Hq, FLASH_TAIL);
+  if (dtype == 0 && D == 128) return launch<float, 128>(FLASH_ARGS, Hq, FLASH_TAIL);
+  if (dtype == 0 && D == 256) return launch<float, 256>(FLASH_ARGS, Hq, FLASH_TAIL);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(FLASH_ARGS, B, Hq, FLASH_TAIL);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(FLASH_ARGS, B, Hq, FLASH_TAIL);
+  if (dtype == 1 && D == 256) return launch_bf16<256>(FLASH_ARGS, B, Hq, FLASH_TAIL);
+#undef FLASH_ARGS
+#undef FLASH_TAIL
   return -1;
 }

@@ -22,8 +22,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_atom_ref
 
 launches = 0                      # kernel launches made by this module
 # Query rows of a tile: one 64-row warpgroup multiply (wgmma) on the bf16
-# path.  Two thread blocks fit one SM on both paths (head_dim 128: bf16 83 KB
-# of Q and a 2-stage K/V ring; f32 75 KB of staging).
+# path.  Two thread blocks fit one SM on both paths up to head_dim 128 (bf16
+# 83 KB of Q and a 2-stage K/V ring; f32 75 KB of staging), one at 256.
 BLOCK_Q = 64
 _lib = None
 
@@ -41,7 +41,7 @@ def _library():
         lib.flash_attention_ctas_per_sm.argtypes = [ctypes.c_int] * 2
         fn = lib.flash_attention_atom
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                        + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         _lib = lib
     return _lib
@@ -89,14 +89,17 @@ def _check_cuda(q, k, v, o, block_q) -> int:
 
 
 def flash_attention_atom(q, k, v, o, *, start: int, num_tiles: int,
-                         causal: bool = True, block_q: int = BLOCK_Q):
+                         causal: bool = True, block_q: int = BLOCK_Q,
+                         window: int = 0):
     """One atom: tiles ``[start, start+num_tiles)`` of the flat tile space,
-    written in place into the running output ``o`` [B,Sq,Hq,D].  Returns
-    ``o``."""
+    written in place into the running output ``o`` [B,Sq,Hq,D].  ``window >
+    0`` also masks keys at or before ``qpos - window``.  Returns ``o``."""
     global launches
     _check(q, k, v, o)
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
+    if window < 0:
+        raise ValueError(f"window must be >= 0, not {window}")
     total = tile_space(q, block_q)
     if not (0 <= start and 0 <= num_tiles and start + num_tiles <= total):
         raise ValueError(f"atom [{start}, {start}+{num_tiles}) outside "
@@ -104,7 +107,7 @@ def flash_attention_atom(q, k, v, o, *, start: int, num_tiles: int,
     if q.device.type == "cpu":
         return flash_attention_atom_ref(q, k, v, o, start=start,
                                         num_tiles=num_tiles, causal=causal,
-                                        block_q=block_q)
+                                        block_q=block_q, window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention has a CUDA kernel and a CPU "
                            f"version; no path for device {q.device}")
@@ -115,7 +118,7 @@ def flash_attention_atom(q, k, v, o, *, start: int, num_tiles: int,
         err = _library().flash_attention_atom(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), start,
             num_tiles, -(-Sq // block_q), B, Hq, Hq // Hk, Sq, Sk, D,
-            int(causal), dtype_code,
+            int(causal), int(window), dtype_code,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -123,17 +126,20 @@ def flash_attention_atom(q, k, v, o, *, start: int, num_tiles: int,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_atom launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, Sk={Sk}, {q.dtype})")
+                           f"{err} (q {tuple(q.shape)}, Sk={Sk}, {q.dtype}, "
+                           f"window={window})")
     launches += 1
     return o
 
 
 def flash_attention(q, k, v, *, causal: bool = True, n_atoms: int = 1,
-                    block_q: int = BLOCK_Q, order: Sequence[int] = ()):
-    """[B,Sq,Hq,D] x [B,Sk,Hk,D] -> [B,Sq,Hq,D].  ``order`` permutes the
-    execution of the atoms; the result does not depend on it."""
+                    block_q: int = BLOCK_Q, order: Sequence[int] = (),
+                    window: int = 0):
+    """[B,Sq,Hq,D] x [B,Sk,Hk,D] -> [B,Sq,Hq,D]; ``window > 0``: each query
+    sees only its last ``window`` keys.  ``order`` permutes the execution of
+    the atoms; the result does not depend on it."""
     o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     for start, ln in schedule(tile_space(q, block_q), n_atoms, order):
         flash_attention_atom(q, k, v, o, start=start, num_tiles=ln,
-                             causal=causal, block_q=block_q)
+                             causal=causal, block_q=block_q, window=window)
     return o

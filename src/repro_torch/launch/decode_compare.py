@@ -13,8 +13,10 @@ CUDA-event times by the tree's ``launch.timing.device_ms``) at each of
 prologue and merge, no key loaded).  ``floor_ms`` is the same harness around
 the smallest kernel (zeroing 16 KB): what any one launch measures at least.
 Each run holds its output against the plain version with ``headline_limit``.
-Prints one JSON line a run, then the card's name and power limit.  Needs a
-GPU.
+A run also times flash attention (K2) at the smoke's serving shape (``flash_attention_atom``, one llama3-8b prompt of 1000 tokens, causal,
+bf16, L2 warm as the smoke times it), held to 3e-2 against the plain
+version.  Prints one JSON line a run, then the card's name and power limit.
+Needs a GPU.
 
 ``chip_smoke.py`` times ``DECODE_SHAPES`` and holds them to the same limit.
 """
@@ -128,6 +130,23 @@ def one(src: str, iters: int) -> dict:
                      "err_limit": headline_limit(want),
                      "took": (ops.plan(q, kc, vc) if hasattr(ops, "plan")
                               else None)}
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention import ref as f_ref
+    B, S, Hq, Hk, D = 1, 1000, 32, 8, 128
+    q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, Hk, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    o = torch.empty_like(q)
+
+    def flash_atom():
+        f_ops.flash_attention_atom(q, k, v, o, start=0,
+                                   num_tiles=f_ops.tile_space(q))
+    ms = device_ms(flash_atom, iters=iters)
+    err = (o.float() - f_ref.attention_ref(q, k, v).float()).abs().max()
+    if not err.item() <= 3e-2:
+        raise SystemExit(f"decode_compare: {src} flash: err {err}")
+    out["flash_serving"] = {"ms": ms, "max_abs_err": err.item()}
     return out
 
 

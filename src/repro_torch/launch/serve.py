@@ -1,14 +1,20 @@
 """Serving launcher: the continuous-batching engine over a synthetic request
 stream, reporting latency and throughput.
 
-Runs on the GPU unless ``--device cpu`` is given.  Submitting the deployment
-to the online control plane (``--ctl-state-dir``) is not ported yet.
+Runs on the GPU unless ``--device cpu`` is given.  Serves every decoder-only
+config: dense, MoE (qwen2-moe-a2.7b, grok-1-314b), hybrid RG-LRU + local
+attention (recurrentgemma-9b) and xLSTM (xlstm-1.3b).  Submitting the
+deployment to the online control plane (``--ctl-state-dir``) is not ported
+yet.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --requests 8 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --max-slots 2 --max-len 4608 \
+        --min-prompt 2100 --requests 3 --max-new 8
 """
 from __future__ import annotations
 
@@ -22,10 +28,14 @@ from repro_torch.configs.registry import ARCH_IDS, get_config
 
 def serve(cfg, *, n_requests: int = 16, max_slots: int = 4,
           max_len: int = 128, max_new: int = 16, seed: int = 0,
-          verbose: bool = True, device=None, params=None):
-    """Serve ``n_requests`` random prompts and drain.  ``device=None`` means
-    the GPU (raises when there is none).  Returns (done requests,
-    latencies)."""
+          verbose: bool = True, device=None, params=None,
+          min_prompt: int = 4):
+    """Serve ``n_requests`` random prompts of ``[min_prompt, max_len // 2)``
+    tokens and drain.  ``device=None`` means the GPU (raises when there is
+    none).  Returns (done requests, latencies)."""
+    if not 1 <= min_prompt < max_len // 2:
+        raise ValueError(f"min_prompt {min_prompt} outside [1, "
+                         f"{max_len // 2})")
     from repro_torch.serve.engine import ServeConfig, SlotServer
 
     rng = np.random.default_rng(seed)
@@ -34,7 +44,7 @@ def serve(cfg, *, n_requests: int = 16, max_slots: int = 4,
         max_slots=max_slots, max_len=max_len, max_new_tokens=max_new),
         seed=seed, clock=lambda: time.time() - t0, device=device)
     for _ in range(n_requests):
-        plen = int(rng.integers(4, max_len // 2))
+        plen = int(rng.integers(min_prompt, max_len // 2))
         srv.submit(rng.integers(2, cfg.vocab_size, plen).astype(np.int32),
                    max_new_tokens=max_new)
     done = srv.run_until_drained()
@@ -56,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--min-prompt", type=int, default=4,
+                    help="shortest prompt; prompts are drawn below "
+                         "max_len // 2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default: cuda (fails without a GPU)")
@@ -74,7 +87,7 @@ def main(argv=None):
         raise SystemExit("SlotServer serves decoder-only configs")
     serve(cfg, n_requests=args.requests, max_slots=args.max_slots,
           max_len=args.max_len, max_new=args.max_new, seed=args.seed,
-          device=args.device)
+          device=args.device, min_prompt=args.min_prompt)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Attention: GQA with RoPE, routed to the hand-written kernels.
 
 * ``naive_attention``   O(S^2) oracle for tests.
-* ``prefill_attention`` causal attention over a prompt: the flash-attention
-                        kernel wrapper (``kernels/flash_attention``).
+* ``prefill_attention`` causal attention over a prompt, optionally within a
+                        sliding window: the flash-attention kernel wrapper
+                        (``kernels/flash_attention``).
 * ``decode_attention``  one new token against the KV cache with per-row
                         lengths: the decode-attention kernel wrapper
-                        (``kernels/decode_attention``).
+                        (``kernels/decode_attention``).  A sliding-window
+                        layer's cache is a ring buffer of ``window`` slots,
+                        every slot below ``min(cur_len, window)`` valid.
 
 The wrappers launch the CUDA kernels for tensors on the card and take their
 plain PyTorch versions only for tensors on the CPU.  All math accumulates in
@@ -97,25 +100,24 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Sq,Hq,Dh] against k/v [B,Sk,Hkv,Dh]; the causal mask is aligned
-    to the end of the keys (chunked prefill when Sq < Sk)."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention waits for the hybrid slice "
-            "(ROADMAP A6)")
-    return _flash_ops.flash_attention(q, k, v, causal=causal)
+    to the end of the keys (chunked prefill when Sq < Sk); ``window > 0``:
+    each query sees only its last ``window`` keys."""
+    return _flash_ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
     """q: [B,Hq,Dh]; caches: [B,Smax,Hkv,Dh]; cur_len: int, 0-d or per-slot
-    [B] tensor (tokens valid per batch row: continuous batching)."""
-    if window:
-        raise NotImplementedError(
-            "the ring-buffer cache of sliding-window layers waits for the "
-            "hybrid slice (ROADMAP A6)")
+    [B] tensor (tokens valid per batch row: continuous batching).  With
+    ``window`` the cache is a ring buffer and ``min(cur_len, window)`` of
+    its slots are valid: softmax does not depend on the keys' order, and
+    RoPE was applied before caching."""
     B = q.shape[0]
     lens = torch.as_tensor(cur_len, device=q.device).to(torch.int32)
-    lens = lens.expand(B).contiguous()
-    return _decode_ops.decode_attention(q, k_cache, v_cache, lens)
+    lens = lens.expand(B)
+    if window:
+        lens = torch.clamp(lens, max=window)
+    return _decode_ops.decode_attention(q, k_cache, v_cache,
+                                        lens.contiguous())
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
@@ -123,13 +125,11 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
     returns the same cache tensors.
 
     ``pos`` may be a scalar (shared position) or a [B] tensor (per-slot
-    positions, continuous batching; requires S == 1).  The new entries are
-    cast to the cache dtype first, so the insert never promotes the cache.
+    positions, continuous batching; requires S == 1).  With ``window`` the
+    cache is a ring buffer: position ``p`` goes to slot ``p % window``.  The
+    new entries are cast to the cache dtype first, so the insert never
+    promotes the cache.
     """
-    if window:
-        raise NotImplementedError(
-            "the ring-buffer cache of sliding-window layers waits for the "
-            "hybrid slice (ROADMAP A6)")
     k_new = k_new.to(k_cache.dtype)
     v_new = v_new.to(v_cache.dtype)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
@@ -137,11 +137,18 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
             raise ValueError("per-slot insert is decode-only (S must be 1)")
         rows = torch.arange(k_new.shape[0], device=k_cache.device)
         idx = pos.to(device=k_cache.device, dtype=torch.long)
+        if window:
+            idx = idx % window
         k_cache[rows, idx] = k_new[:, 0]
         v_cache[rows, idx] = v_new[:, 0]
         return k_cache, v_cache
     pos = int(pos)
     S = k_new.shape[1]
+    if window:
+        idx = (pos + torch.arange(S, device=k_cache.device)) % window
+        k_cache[:, idx] = k_new
+        v_cache[:, idx] = v_new
+        return k_cache, v_cache
     k_cache[:, pos:pos + S] = k_new
     v_cache[:, pos:pos + S] = v_new
     return k_cache, v_cache

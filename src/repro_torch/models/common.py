@@ -81,8 +81,13 @@ def dot(x, w):
 
 
 def einsum(spec, *args, out_dtype: Optional[torch.dtype] = None):
+    """``torch.einsum`` with f32 accumulation, output in ``out_dtype``
+    (default: the first operand's dtype).  An f32 output of lower-precision
+    operands (the MoE router's logits, the xLSTM gates) is computed from
+    f32 operands, so it is never rounded to the operands' dtype first."""
     dt = out_dtype if out_dtype is not None else args[0].dtype
-    if any(_upcast(a) for a in args):
+    if any(_upcast(a) for a in args) or (
+            dt == torch.float32 and any(a.dtype != dt for a in args)):
         return torch.einsum(spec, *(a.float() for a in args)).to(dt)
     return torch.einsum(spec, *args).to(dt)
 

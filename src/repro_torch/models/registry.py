@@ -1,4 +1,4 @@
-"""Uniform model API (decoder-only half).
+"""Uniform model API (decoder-only half): dense, MoE, hybrid and xLSTM.
 
     init_model(cfg, seed=..., device=...)         -> params
     serve_prefill(params, cfg, batch, max_len)    -> (logits, caches)

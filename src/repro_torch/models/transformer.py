@@ -1,22 +1,26 @@
-"""Decoder-only LM: the dense (``("attn",)`` pattern) path.
+"""Decoder-only LM: dense, MoE, hybrid (RG-LRU + local attention) and xLSTM.
 
-Layer stacks keep the reference layout: params of the pattern position
-``pos`` live under ``blocks/<pos>/...`` with a leading group axis ``[G, ...]``
-(``G = n_layers // len(pattern)``); the remainder layers, unstacked, under
-``rem/<i>/...``.  The stack is applied by a Python loop over ``g`` that
-indexes the stacked leaves.
+Layer stacks keep the reference layout: the per-arch layer pattern (e.g.
+``("rec", "rec", "attn")`` for RecurrentGemma, ``("mlstm",)*7 + ("slstm",)``
+for xLSTM, ``("attn",)`` for dense and MoE) is applied cyclically; params of
+the pattern position ``pos`` live under ``blocks/<pos>/...`` with a leading
+group axis ``[G, ...]`` (``G = n_layers // len(pattern)``); the remainder
+layers, unstacked, under ``rem/<i>/...``.  The stack is applied by a Python
+loop over ``g`` that indexes the stacked leaves.
 
 Entry points:
     init_lm(cfg, seed=..., device=...) -> params
     forward(params, cfg, tokens)       -> final hidden states [B,S,D]
     lm_logits                          -> f32 vocab projection
-    prefill(...) / decode_step(...)    -> serving paths with KV caches
+    prefill(...) / decode_step(...)    -> serving paths with caches / states
 
 Serving caches are updated IN PLACE: ``prefill`` and ``decode_step`` write
-into the cache tensors they are given and return the same objects.
+into the cache tensors they are given and return the same objects.  A
+prefill into a slot of shared caches starts that slot's recurrent state
+from the initial values, as the reference's fresh caches do.
 
-MoE, hybrid / recurrent patterns, encoder-decoder and the VLM / audio
-frontends are not ported yet; ``check_supported`` names the ROADMAP item.
+Encoder-decoder models and the VLM / audio frontends are not ported yet;
+``check_supported`` names the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,8 +30,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (dtype_of, make_generator,
-                                       resolve_device, tree_map)
+                                       resolve_device, tree_map, tree_paths)
 from repro_torch.models.layers import (apply_head, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_head,
                                        init_mlp, init_norm, rope_table)
@@ -44,14 +51,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
             "(ROADMAP A7)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts blocks are not ported yet "
-            "(ROADMAP A5)")
-    if cfg.hybrid is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid / recurrent layer patterns are not ported "
-            "yet (ROADMAP A6)")
 
 
 def layer_pattern(cfg: ArchConfig) -> tuple[str, ...]:
@@ -60,25 +59,58 @@ def layer_pattern(cfg: ArchConfig) -> tuple[str, ...]:
     return ("attn",)
 
 
+def _window_for(cfg: ArchConfig, kind: str) -> int:
+    if kind == "attn" and cfg.hybrid is not None:
+        return cfg.hybrid.window
+    return 0
+
+
+def attention_layers(cfg: ArchConfig) -> int:
+    """How many of the ``n_layers`` are attention layers (each launches
+    attention once a prefill or decode step)."""
+    pat = layer_pattern(cfg)
+    G, n_rem = divmod(cfg.n_layers, len(pat))
+    return G * pat.count("attn") + pat[:n_rem].count("attn")
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
+def _ffn_params(gen, cfg: ArchConfig, stack: tuple) -> dict:
+    dt = dtype_of(cfg.dtype)
+    if cfg.moe is not None:
+        return {"moe": moe_lib.init_moe(gen, cfg.d_model, cfg.moe, dt, stack)}
+    return {"mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
+                            stack)}
+
+
 def _init_block(gen, cfg: ArchConfig, kind: str, stack: tuple = ()) -> PyTree:
     """One block's params; ``stack=(G,)`` draws G layers at once with a
     leading group axis."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} (ROADMAP A6)")
     dt = dtype_of(cfg.dtype)
     d = cfg.d_model
-    return {
-        "ln1": init_norm(gen, d, cfg.norm, dt, stack),
-        "attn": attn_lib.init_attention(
+    p: dict = {"ln1": init_norm(gen, d, cfg.norm, dt, stack)}
+    if kind == "attn":
+        p["attn"] = attn_lib.init_attention(
             gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt,
-            cfg.qkv_bias, stack),
-        "ln2": init_norm(gen, d, cfg.norm, dt, stack),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.activation, dt, stack),
-    }
+            cfg.qkv_bias, stack)
+        p["ln2"] = init_norm(gen, d, cfg.norm, dt, stack)
+        p.update(_ffn_params(gen, cfg, stack))
+    elif kind == "rec":
+        h = cfg.hybrid
+        p["rec"] = rglru_lib.init_rglru_block(gen, d, h.lru_width or d,
+                                              h.conv_width, dt, stack)
+        p["ln2"] = init_norm(gen, d, cfg.norm, dt, stack)
+        p.update(_ffn_params(gen, cfg, stack))
+    elif kind == "mlstm":
+        p["mlstm"] = ssm_lib.init_mlstm_block(gen, d, cfg.n_heads,
+                                              cfg.hybrid.conv_width, dt, stack)
+    elif kind == "slstm":
+        p["slstm"] = ssm_lib.init_slstm_block(gen, d, cfg.n_heads, dt, stack)
+    else:
+        raise ValueError(kind)
+    return p
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> PyTree:
@@ -110,8 +142,7 @@ def _n_groups(params) -> int:
     blocks = params.get("blocks")
     if not blocks:
         return 0
-    leaf = blocks["0"]["attn"]["wq"]
-    return leaf.shape[0]
+    return tree_paths(blocks["0"])[0][1].shape[0]
 
 
 def _layer(tree: PyTree, g: int) -> PyTree:
@@ -120,27 +151,101 @@ def _layer(tree: PyTree, g: int) -> PyTree:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill hidden states)
+# Blocks: prompt-length (forward / prefill) and one-token (decode)
 # ---------------------------------------------------------------------------
 
-def _attn_mlp(bp, x, o, cfg: ArchConfig):
-    x = x + attn_lib.out_project(bp["attn"], o)
+def _ffn(bp, x, cfg: ArchConfig, kind: str):
+    """The block's second half: norm, then the MLP or (attention blocks of
+    MoE configs) the experts, residual added.  The MoE's auxiliary losses
+    are a training signal, which serving drops."""
     h = apply_norm(bp["ln2"], x, cfg.norm)
+    if kind == "attn" and cfg.moe is not None:
+        return x + moe_lib.apply_moe(bp["moe"], h, cfg.moe)[0]
     return x + apply_mlp(bp["mlp"], h, cfg.activation)
+
+
+def _store(cache: dict, new: dict) -> None:
+    """Write a block's new state into its cache view, in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
 
 
 def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
                  cache=None):
     """Residual block application on [B,S,D] activations.  With ``cache``
-    (this block's {"k","v"} [B,S,Hk,D]) the prompt's K/V are also written
-    into it, in place, from position 0."""
+    (this block's cache / state view) the prompt's K/V, or the recurrent
+    state at its end, are also written into it, in place; a recurrent block
+    starts from the initial state, never from what the cache held."""
+    window = _window_for(cfg, kind)
     h = apply_norm(bp["ln1"], x, cfg.norm)
-    q, k, v = attn_lib.qkv_project(bp["attn"], h, positions, cfg.rope_theta,
-                                   rope=rope)
-    o = attn_lib.prefill_attention(q, k, v, causal=True)
-    if cache is not None:
-        attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, 0)
-    return _attn_mlp(bp, x, o, cfg)
+    if kind == "attn":
+        q, k, v = attn_lib.qkv_project(bp["attn"], h, positions,
+                                       cfg.rope_theta, rope=rope)
+        o = attn_lib.prefill_attention(q, k, v, causal=True, window=window)
+        if cache is not None:
+            S = k.shape[1]
+            keep = min(window, S) if window else S
+            attn_lib.update_kv_cache(cache["k"], cache["v"], k[:, S - keep:],
+                                     v[:, S - keep:], S - keep, window=window)
+        x = x + attn_lib.out_project(bp["attn"], o)
+        return _ffn(bp, x, cfg, kind)
+    if kind == "rec":
+        if cache is None:
+            o = rglru_lib.apply_rglru_block(bp["rec"], h)
+        else:
+            o, (hN, conv) = rglru_lib.apply_rglru_block(
+                bp["rec"], h, conv_state=torch.zeros_like(cache["conv"]),
+                return_state=True)
+            _store(cache, {"h": hN, "conv": conv})
+        return _ffn(bp, x + o, cfg, kind)
+    if kind == "mlstm":
+        if cache is None:
+            o = ssm_lib.apply_mlstm_block(bp["mlstm"], h)
+        else:
+            o, (st, tail) = ssm_lib.apply_mlstm_block(bp["mlstm"], h,
+                                                      return_state=True)
+            _store(cache, {**st, "conv": tail})
+        return x + o
+    if kind == "slstm":
+        if cache is None:
+            o = ssm_lib.apply_slstm_block(bp["slstm"], h)
+        else:
+            o, st = ssm_lib.apply_slstm_block(bp["slstm"], h,
+                                              return_state=True)
+            _store(cache, st)
+        return x + o
+    raise ValueError(kind)
+
+
+def _decode_block(bp, x, cfg, kind, pos, lens, rope, cache):
+    """x: [B,1,D]; pos: [B] positions of the new token, lens = pos + 1;
+    cache: this block's cache / state view, updated in place."""
+    window = _window_for(cfg, kind)
+    h = apply_norm(bp["ln1"], x, cfg.norm)
+    if kind == "attn":
+        q, k, v = attn_lib.qkv_project(bp["attn"], h, pos[:, None],
+                                       cfg.rope_theta, rope=rope)
+        kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, pos,
+                                          window=window)
+        o = attn_lib.decode_attention(q[:, 0], kc, vc, lens, window=window)
+        x = x + attn_lib.out_project(bp["attn"], o[:, None])
+        return _ffn(bp, x, cfg, kind)
+    if kind == "rec":
+        o, hN, conv = rglru_lib.decode_rglru_block(bp["rec"], h, cache["h"],
+                                                   cache["conv"])
+        _store(cache, {"h": hN, "conv": conv})
+        return _ffn(bp, x + o, cfg, kind)
+    if kind == "mlstm":
+        st = {n: cache[n] for n in ("C", "n", "m")}
+        o, st, conv = ssm_lib.decode_mlstm_block(bp["mlstm"], h, st,
+                                                 cache["conv"])
+        _store(cache, {**st, "conv": conv})
+        return x + o
+    if kind == "slstm":
+        o, st = ssm_lib.decode_slstm_block(bp["slstm"], h, dict(cache))
+        _store(cache, st)
+        return x + o
+    raise ValueError(kind)
 
 
 def _layers(params, cfg: ArchConfig, caches=None, rows=None):
@@ -199,21 +304,48 @@ def lm_logits(params, cfg: ArchConfig, h):
 
 
 # ---------------------------------------------------------------------------
-# Serving: caches
+# Serving: caches and states
 # ---------------------------------------------------------------------------
-# Cache structure (plain dict):
-#   {"groups": {pos: {"k","v"} [G,B,S,Hk,D]}, "rem": {i: {"k","v"} [B,S,Hk,D]}}
-# where pos indexes the layer pattern and rem the remainder layers.  The
-# batch (slot) axis is axis 1 under "groups" and axis 0 under "rem".
+# Cache structure (plain dict): {"groups": {pos: cache [G,B,...]}, "rem":
+# {i: cache [B,...]}} where pos indexes the layer pattern and rem the
+# remainder layers; the batch (slot) axis is axis 1 under "groups" and
+# axis 0 under "rem".  A block's cache is one dict of named tensors:
+#   attn   {"k","v"} [B,S,Hk,D]   (S = min(max_len, window) for windowed
+#                                  layers, whose cache is a ring buffer)
+#   rec    {"h" [B,W], "conv" [B,cw-1,W]}                  (cfg.dtype)
+#   mlstm  {"C" [B,H,hd,hd], "n" [B,H,hd], "m" [B,H]} f32, "conv" [B,cw-1,Di]
+#   slstm  {"c","n","h","m"} [B,H,hd] f32
 
 def _init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                       device, stack: tuple = ()):
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} (ROADMAP A6)")
     dt = dtype_of(cfg.dtype)
-    shape = stack + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def stacked(tree):
+        return {n: t.expand(stack + t.shape).clone() for n, t in tree.items()}
+
+    if kind == "attn":
+        w = _window_for(cfg, kind)
+        S = min(max_len, w) if w else max_len
+        shape = stack + (batch, S, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    cw = cfg.hybrid.conv_width
+    if kind == "rec":
+        width = cfg.hybrid.lru_width or cfg.d_model
+        return {"h": torch.zeros(stack + (batch, width), dtype=dt,
+                                 device=device),
+                "conv": torch.zeros(stack + (batch, cw - 1, width), dtype=dt,
+                                    device=device)}
+    if kind == "mlstm":
+        di = int(ssm_lib.MLSTM_EXPANSION * cfg.d_model)
+        st = ssm_lib.init_mlstm_state(batch, cfg.n_heads, di // cfg.n_heads,
+                                      device)
+        st["conv"] = torch.zeros((batch, cw - 1, di), dtype=dt, device=device)
+        return stacked(st)
+    if kind == "slstm":
+        return stacked(ssm_lib.init_slstm_state(
+            batch, cfg.n_heads, cfg.d_model // cfg.n_heads, device))
+    raise ValueError(kind)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
@@ -229,17 +361,6 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
     rem = {str(i): _init_block_cache(cfg, pat[i], batch, max_len, device)
            for i in range(n_rem)}
     return {"groups": groups, "rem": rem}
-
-
-def _decode_block(bp, x, cfg, kind, pos, lens, rope, cache):
-    """x: [B,1,D]; pos: [B] positions of the new token, lens = pos + 1;
-    cache: this block's {"k","v"} [B,S,Hk,D], updated in place."""
-    h = apply_norm(bp["ln1"], x, cfg.norm)
-    q, k, v = attn_lib.qkv_project(bp["attn"], h, pos[:, None], cfg.rope_theta,
-                                   rope=rope)
-    kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, pos)
-    o = attn_lib.decode_attention(q[:, 0], kc, vc, lens)
-    return _attn_mlp(bp, x, o[:, None], cfg)
 
 
 @torch.no_grad()
@@ -272,10 +393,13 @@ def prefill(params, cfg: ArchConfig, tokens, *, input_embeds=None,
     """Process a prompt, filling caches.  Returns (last-position logits,
     caches).
 
-    With ``caches=None`` fresh zero caches of ``[B, max_len]`` are made.
-    Otherwise K/V are written IN PLACE into batch rows ``[slot, slot+B)`` of
-    the given caches, positions ``[0, S)``; entries beyond the prompt keep
-    whatever they held (they are masked by the per-row lengths at decode).
+    With ``caches=None`` fresh caches of ``[B, max_len]`` are made.
+    Otherwise the prompt's K/V and recurrent states are written IN PLACE
+    into batch rows ``[slot, slot+B)`` of the given caches: K/V at
+    positions ``[0, S)`` (a windowed layer: its last ``window`` positions,
+    each at ``pos % window``), entries beyond the prompt keeping whatever
+    they held (masked by the per-row lengths at decode); the recurrent
+    states are computed from their initial values and replace the slot's.
     """
     check_supported(cfg)
     x = embed_inputs(params, cfg, tokens, input_embeds)

@@ -1,6 +1,7 @@
 """Slot-based continuous-batching serving engine.
 
-A fixed pool of ``max_slots`` decode slots shares one KV-cache allocation.
+A fixed pool of ``max_slots`` decode slots shares one cache allocation (KV
+caches and, for recurrent layers, their states).
 Requests prefill at batch 1 straight into a free slot's stripe of the cache;
 every engine iteration decodes *all* slots in one batched ``decode_step``
 call with per-slot positions; finished slots (EOS or max-tokens) free

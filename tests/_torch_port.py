@@ -14,13 +14,9 @@ from repro_torch.convert import from_jax_params
 
 
 def to_numpy(tree):
-    """A JAX parameter tree as nested dicts of numpy arrays: floating leaves
-    as float32 (bfloat16 included), integer leaves as they are."""
-    def leaf(x):
-        if jax.numpy.issubdtype(x.dtype, jax.numpy.integer):
-            return np.asarray(x)
-        return np.asarray(x, np.float32)
-    return jax.tree.map(leaf, tree)
+    """A JAX parameter tree as nested dicts of numpy arrays, each leaf in its
+    own dtype (bfloat16 as numpy's extension dtype of that name)."""
+    return jax.tree.map(np.asarray, tree)
 
 
 def make_pair(arch: str, *, dtype: str = "float32", seed: int = 0,
@@ -39,7 +35,7 @@ def make_pair(arch: str, *, dtype: str = "float32", seed: int = 0,
         jparams = jax.tree.map(
             lambda x: (x + jitter * rng.standard_normal(x.shape)
                        ).astype(x.dtype), jparams)
-    tparams = from_jax_params(to_numpy(jparams), tcfg, device="cpu")
+    tparams = from_jax_params(to_numpy(jparams), device="cpu")
     return jcfg, jparams, tcfg, tparams
 
 
@@ -59,3 +55,46 @@ def as_np(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(x, np.float32)
+
+
+def ref_state(kind: str, st) -> dict:
+    """A block cache of the JAX package (a dict, a tuple or a ``NamedTuple``)
+    as the port's dict of named leaves."""
+    if kind == "attn":
+        return dict(st)
+    if kind == "rec":
+        h, conv = st
+        return {"h": h, "conv": conv}
+    if kind == "mlstm":
+        inner, conv = st
+        return {"C": inner.C, "n": inner.n, "m": inner.m, "conv": conv}
+    if kind == "slstm":
+        return {"c": st.c, "n": st.n, "h": st.h, "m": st.m}
+    raise ValueError(kind)
+
+
+def assert_states_close(port: dict, ref: dict, *, rtol, atol, upto=None):
+    """Leaf by leaf: the same names, shapes and (within tolerance) values.
+    ``upto`` compares K/V only over the first ``upto`` slots, which the port
+    writes while the reference also zeroes the rest."""
+    assert set(port) == set(ref), (sorted(port), sorted(ref))
+    for name in port:
+        a, b = as_np(port[name]), as_np(ref[name])
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        if upto is not None and name in ("k", "v"):
+            a, b = a[..., :upto, :, :], b[..., :upto, :, :]
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
+
+
+def assert_caches_close(tcaches, jcaches, cfg, *, rtol, atol, upto=None):
+    """Every block cache of a model (``groups`` and ``rem``) against the
+    reference's, leaf by leaf."""
+    pat = cfg.hybrid.pattern if cfg.hybrid is not None else ("attn",)
+    assert set(tcaches["groups"]) == set(jcaches["groups"])
+    assert set(tcaches["rem"]) == set(jcaches["rem"])
+    for pos, c in tcaches["groups"].items():
+        assert_states_close(c, ref_state(pat[int(pos)], jcaches["groups"][pos]),
+                            rtol=rtol, atol=atol, upto=upto)
+    for i, c in tcaches["rem"].items():
+        assert_states_close(c, ref_state(pat[int(i)], jcaches["rem"][i]),
+                            rtol=rtol, atol=atol, upto=upto)

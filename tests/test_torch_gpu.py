@@ -84,7 +84,7 @@ def _boundary_lens(rng, B, S, chunk):
     return [min(max(int(x), 0), S) for x in rng.choice(pool, B)]
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
 def test_decode_split_kernel_random_shapes(cuda, nsplit, D):
     """The bf16 split-KV kernel at every split count, lens on the split
@@ -145,7 +145,7 @@ def test_decode_split_kernel_one_slot_long_context(cuda):
         q, kc, vc, lens, n_atoms=8, order=(7, 0, 6, 1, 5, 2, 4, 3)))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_decode_kernel_refuses_unaligned_pitch(cuda, D):
     """Caches whose key pitch is not a multiple of 16 bytes, which neither
     TMA nor 16-byte loads address, raise before any launch."""
@@ -161,7 +161,7 @@ def test_decode_kernel_refuses_unaligned_pitch(cuda, D):
     assert decode_ops.launches == before
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
 def test_decode_split_kernel_clusters_fit(cuda, D, nsplit):
     """The card runs clusters of every split count (at most two CTAs an
@@ -177,6 +177,95 @@ def test_decode_split_kernel_clusters_fit(cuda, D, nsplit):
         fit = decode_ops.cluster_fit(cuda, D)
         assert p["nsplit"] == 1 or \
             fit[decode_ops.SPLITS.index(p["nsplit"])] >= B * Hk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [[2048, 2048], [2048, 1], [700, 2047]])
+def test_decode_kernel_head_dim_256_mqa_ring(cuda, dtype, lens):
+    """RecurrentGemma's decode: 16 query heads on one KV head (G = 16 fills a
+    pass), head_dim 256, a ring-buffer cache of 2048 slots whose valid
+    length is min(pos + 1, window): values, atoms bit-equal, the split."""
+    rng = np.random.default_rng(256 + lens[1])
+    B, Hq, Hk, D, S = 2, 16, 1, 256, 2048
+    q = _randn(rng, (B, Hq, D), dtype, cuda)
+    kc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    vc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = decode_ops.decode_attention(q, kc, vc, lens_t)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, kc, vc, lens_t)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    p = decode_ops.plan(q, kc, vc)
+    if dtype == torch.bfloat16:
+        assert p["route"] == "split" and p["nsplit"] > 1
+        split = decode_attention_split_ref(q, kc, vc, lens_t, p["nsplit"],
+                                           p["chunk"])
+        assert (got.float() - split.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(got, decode_ops.decode_attention(
+        q, kc, vc, lens_t, n_atoms=2, order=(1, 0)))
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,window", [(300, 300, 64), (300, 300, 100),
+                                          (77, 333, 50), (200, 200, 1),
+                                          (130, 130, 500)])
+def test_flash_kernel_sliding_window(cuda, D, dtype, Sq, Sk, window):
+    """The window argument at every head dim: values against the plain
+    version, atoms in permuted order bit-equal, an atom writes only its
+    tiles, and window 0 is the causal kernel bit for bit."""
+    rng = np.random.default_rng(D + Sq + Sk + window)
+    B, Hq, Hk = 2, 4, 1
+    q = _randn(rng, (B, Sq, Hq, D), dtype, cuda)
+    k = _randn(rng, (B, Sk, Hk, D), dtype, cuda)
+    v = _randn(rng, (B, Sk, Hk, D), dtype, cuda)
+    got = flash_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    if dtype == torch.bfloat16:     # and row by row: 2^-6 of its max|output|
+        err = (got.float() - want.float()).abs().amax(dim=(2, 3))
+        assert bool((err <= 2.0 ** -6
+                     * want.float().abs().amax(dim=(2, 3))).all())
+    if window < Sk:
+        full = attention_ref(q, k, v)
+        assert (full.float() - want.float()).abs().max().item() > TOL[dtype]
+    assert torch.equal(got, flash_ops.flash_attention(
+        q, k, v, window=window, n_atoms=3, order=(2, 0, 1)))
+    assert torch.equal(flash_ops.flash_attention(q, k, v, window=0),
+                       flash_ops.flash_attention(q, k, v))
+    total = flash_ops.tile_space(q)
+    o = torch.full_like(q, 7.0)
+    flash_ops.flash_attention_atom(q, k, v, o, start=total // 3,
+                                   num_tiles=total // 3, window=window)
+    nqb = -(-Sq // flash_ops.BLOCK_Q)
+    tile = (torch.arange(B * Hq, device=cuda)[:, None] * nqb
+            + torch.arange(Sq, device=cuda)[None, :] // flash_ops.BLOCK_Q)
+    inside = ((tile >= total // 3) & (tile < 2 * (total // 3))).view(
+        B, Hq, Sq).permute(0, 2, 1)
+    assert torch.equal(o[inside], got[inside])
+    assert bool((o[~inside] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(200, 200), (77, 333), (130, 70)])
+def test_flash_kernel_head_dim_256(cuda, dtype, causal, Sq, Sk):
+    """head_dim 256 (RecurrentGemma), MQA, causal or not, chunked prefill
+    and Sq > Sk: values, atoms bit-equal; one CTA an SM on the bf16 path."""
+    rng = np.random.default_rng(256 + Sq + Sk + causal)
+    B, Hq, Hk, D = 2, 4, 1, 256
+    q = _randn(rng, (B, Sq, Hq, D), dtype, cuda)
+    k = _randn(rng, (B, Sk, Hk, D), dtype, cuda)
+    v = _randn(rng, (B, Sk, Hk, D), dtype, cuda)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(got, flash_ops.flash_attention(
+        q, k, v, causal=causal, n_atoms=3, order=(1, 2, 0)))
+    assert flash_ops.ctas_per_sm(256, torch.bfloat16) == 1
+    assert flash_ops.ctas_per_sm(256, torch.float32) >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -367,3 +456,39 @@ def test_model_on_gpu_matches_cpu(cuda, dtype):
         assert (lg.cpu() - lc).abs().max().item() <= tol
     assert flash_ops.launches == before[0] + cfg.n_layers
     assert decode_ops.launches == before[1] + 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen2-moe-a2.7b", "float32"),
+                                        ("recurrentgemma-9b", "float32"),
+                                        ("recurrentgemma-9b", "bfloat16"),
+                                        ("xlstm-1.3b", "float32"),
+                                        ("xlstm-1.3b", "bfloat16")])
+def test_moe_and_hybrid_models_on_gpu_match_cpu(cuda, arch, dtype):
+    """The MoE, hybrid and xLSTM decoders with the kernels on the card
+    against the plain versions on the CPU: a 70-token prompt (past the
+    reduced window of 32: the windowed flash kernel and the ring buffer run,
+    recurrentgemma at head_dim 256) and two decode steps; one launch of each
+    attention kernel per attention layer.  (MoE only in float32: a bf16
+    rounding may flip a top-k choice between the devices.)"""
+    d_head = 256 if arch == "recurrentgemma-9b" else 64
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_head=d_head,
+                              dtype=dtype)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(2, 256, (2, 70)))
+    tol = 2e-3 if dtype == "float32" else 5e-2
+    n_attn = transformer.attention_layers(cfg)
+    before = flash_ops.launches, decode_ops.launches
+    lc, cc = transformer.prefill(cpu, cfg, toks, max_len=80)
+    lg, cg = transformer.prefill(gpu, cfg, toks.to(cuda), max_len=80)
+    assert (lg.cpu() - lc).abs().max().item() <= tol
+    for step in range(2):
+        nxt = torch.from_numpy(rng.integers(2, 256, (2,)))
+        pos = torch.tensor([70 + step] * 2)
+        lc, _ = transformer.decode_step(cpu, cfg, nxt, pos, cc)
+        lg, _ = transformer.decode_step(gpu, cfg, nxt.to(cuda), pos.to(cuda),
+                                        cg)
+        assert (lg.cpu() - lc).abs().max().item() <= tol
+    assert flash_ops.launches == before[0] + n_attn
+    assert decode_ops.launches == before[1] + 2 * n_attn

@@ -31,11 +31,13 @@ from repro.kernels.decode_attention.ref import (
     decode_attention_ref as jax_decode_ref)
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.models import attention as jax_attn
 from repro_torch.kernels.atoms import atom_ranges, schedule, tile_count
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import attention as attn
 
 from _torch_port import as_np, normal_pair
 
@@ -320,6 +322,110 @@ def test_decode_attention_atom_leaves_other_rows_untouched():
     with pytest.raises(ValueError):
         decode_ops.decode_attention_atom(q, kc, vc, lens, o, start=B * Hk,
                                          num_rows=1)
+
+
+# ---------------------------------------------------------------------------
+# sliding-window attention and head_dim 256 (the hybrid slice)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,window", [(40, 32), (100, 32), (20, 32), (70, 1)])
+def test_windowed_prefill_attention_matches_reference(S, window):
+    """The flash wrapper's plain version with ``window`` against the
+    reference's naive and blocked (the model's) windowed attention, at
+    prompts below and beyond the reduced window of 32; atoms compose."""
+    rng = np.random.default_rng(S + window)
+    (q, jq), (k, jk), (v, jv) = (normal_pair(rng, (2, S, 4, 16)),
+                                 normal_pair(rng, (2, S, 1, 16)),
+                                 normal_pair(rng, (2, S, 1, 16)))
+    got = attn.prefill_attention(q, k, v, window=window)
+    np.testing.assert_allclose(
+        as_np(got), as_np(jax_attn.naive_attention(jq, jk, jv, window=window)),
+        rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(
+        as_np(got), as_np(jax_attn.blocked_attention(
+            jq, jk, jv, causal=True, window=window, block_q=16, block_kv=16)),
+        rtol=2e-3, atol=2e-3)
+    atoms = flash_ops.flash_attention(q, k, v, window=window, n_atoms=3,
+                                      order=(2, 0, 1))
+    np.testing.assert_allclose(as_np(atoms), as_np(got), rtol=1e-6, atol=1e-6)
+
+
+def test_windowed_prefill_attention_chunked_end_aligned():
+    """Sq < Sk: the window is measured from the end-aligned query position."""
+    rng = np.random.default_rng(11)
+    (q, jq), (k, jk), (v, jv) = (normal_pair(rng, (1, 10, 2, 16)),
+                                 normal_pair(rng, (1, 50, 2, 16)),
+                                 normal_pair(rng, (1, 50, 2, 16)))
+    np.testing.assert_allclose(
+        as_np(attn.prefill_attention(q, k, v, window=12)),
+        as_np(jax_attn.naive_attention(jq, jk, jv, window=12, q_offset=40)),
+        rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("per_slot", [False, True], ids=["scalar", "per_slot"])
+def test_ring_buffer_decode_matches_reference(per_slot):
+    """A ring of 32 slots filled by a 45-token prefill (its last 32 tokens
+    at pos % 32), then decode steps that wrap it further: the cache and the
+    decode wrapper's plain version against the reference's."""
+    W, S, B = 32, 45, 2
+    rng = np.random.default_rng(12)
+    (k, jk), (v, jv) = (normal_pair(rng, (B, S, 1, 16)),
+                        normal_pair(rng, (B, S, 1, 16)))
+    kc, vc = torch.zeros(B, W, 1, 16), torch.zeros(B, W, 1, 16)
+    jkc, jvc = jnp.zeros((B, W, 1, 16)), jnp.zeros((B, W, 1, 16))
+    attn.update_kv_cache(kc, vc, k[:, S - W:], v[:, S - W:], S - W, window=W)
+    jkc, jvc = jax_attn.update_kv_cache(jkc, jvc, jk[:, S - W:], jv[:, S - W:],
+                                        jnp.int32(S - W), window=W)
+    np.testing.assert_array_equal(as_np(kc), as_np(jkc))
+    for step in range(4):
+        pos = S + step
+        (q, jq), (kn, jkn), (vn, jvn) = (normal_pair(rng, (B, 1, 4, 16)),
+                                         normal_pair(rng, (B, 1, 1, 16)),
+                                         normal_pair(rng, (B, 1, 1, 16)))
+        tp, jp = ((torch.full((B,), pos), jnp.full((B,), pos)) if per_slot
+                  else (pos, jnp.int32(pos)))
+        attn.update_kv_cache(kc, vc, kn, vn, tp, window=W)
+        jkc, jvc = jax_attn.update_kv_cache(jkc, jvc, jkn, jvn, jp, window=W)
+        np.testing.assert_array_equal(as_np(vc), as_np(jvc))
+        got = attn.decode_attention(q[:, 0], kc, vc, tp + 1 if per_slot
+                                    else pos + 1, window=W)
+        want = jax_attn.decode_attention(jq[:, 0], jkc, jvc, jp + 1, window=W)
+        np.testing.assert_allclose(as_np(got), as_np(want), rtol=2e-3, atol=2e-3)
+
+
+def test_ring_decode_clamps_lens_to_the_window():
+    """Below the window the valid length is pos + 1, beyond it the window."""
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
+    kc = torch.from_numpy(rng.standard_normal((2, 8, 2, 16)).astype(np.float32))
+    got = attn.decode_attention(q, kc, kc, torch.tensor([3, 50]), window=8)
+    want = decode_ops.decode_attention(q, kc, kc, torch.tensor([3, 8],
+                                                               dtype=torch.int32))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "decode"])
+def test_head_dim_256_mqa_matches_reference(kernel):
+    """RecurrentGemma's attention shape: 16 query heads on one KV head,
+    head_dim 256, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(256)
+    if kernel == "flash":
+        (q, jq), (k, jk), (v, jv) = (normal_pair(rng, (1, 40, 16, 256)),
+                                     normal_pair(rng, (1, 40, 1, 256)),
+                                     normal_pair(rng, (1, 40, 1, 256)))
+        o = flash_attention(q, k, v, causal=True, block_q=32)
+        want = jax_flash(jq, jk, jv, causal=True, block_q=32, block_k=32,
+                         interpret=True)
+        np.testing.assert_allclose(as_np(o), as_np(want), rtol=2e-3, atol=2e-3)
+        return
+    (q, jq), (kc, jkc), (vc, jvc) = (normal_pair(rng, (2, 16, 256)),
+                                     normal_pair(rng, (2, 64, 1, 256)),
+                                     normal_pair(rng, (2, 64, 1, 256)))
+    lens = np.array([64, 9], np.int32)
+    o = decode_attention(q, kc, vc, torch.from_numpy(lens))
+    want = jax_decode(jq, jkc, jvc, jnp.asarray(lens), block_k=32,
+                      interpret=True)
+    np.testing.assert_allclose(as_np(o), as_np(want), rtol=2e-5, atol=2e-5)
 
 
 def test_wrappers_check_shapes_and_dtypes():

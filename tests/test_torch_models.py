@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import make_pair, to_numpy
+from _torch_port import as_np, make_pair, to_numpy
 from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
 from repro.models import transformer as jax_tf
@@ -72,7 +72,46 @@ def test_param_tree_paths_and_shapes_match(arch):
         (p, tuple(x.shape), x.dtype) for p, x in tp]
     back = to_numpy_tree(tparams)
     for (p, a), (_, b) in zip(tree_paths(back), jax_tree_paths(to_numpy(jparams))):
-        np.testing.assert_array_equal(a, b, err_msg=p)
+        np.testing.assert_array_equal(a, as_np(b), err_msg=p)
+
+
+NEW_FAMILIES = ["qwen2-moe-a2.7b", "grok-1-314b", "recurrentgemma-9b",
+                "xlstm-1.3b"]
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_param_tree_matches_for_moe_and_hybrid(arch, dtype):
+    """Paths, shapes and dtypes of the converted tree and of the port's own
+    initialiser against the reference's, the leaves the reference keeps in
+    float32 under a bfloat16 config included; values round-trip."""
+    jcfg, jparams, tcfg, tparams = make_pair(arch, dtype=dtype)
+    jp, tp = jax_tree_paths(jparams), tree_paths(tparams)
+    assert [p for p, _ in tp] == [p for p, _ in jp]
+    assert [(tuple(x.shape), x.dtype) for _, x in tp] == [
+        (tuple(x.shape), _TORCH_DTYPES[str(x.dtype)]) for _, x in jp]
+    own = init_model(tcfg, seed=1, device="cpu")
+    assert [(p, tuple(x.shape), x.dtype) for p, x in tree_paths(own)] == [
+        (p, tuple(x.shape), x.dtype) for p, x in tp]
+    back = to_numpy_tree(tparams)
+    for (p, a), (_, b) in zip(tree_paths(back),
+                              jax_tree_paths(to_numpy(jparams))):
+        np.testing.assert_array_equal(a, as_np(b), err_msg=p)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_convert_leaves_dense_trees_as_they_were(arch, dtype):
+    """Keeping each leaf's own dtype changes nothing in a dense config:
+    every floating leaf still comes out in the config's dtype, with the
+    values a cast of the reference's leaf to that dtype gives."""
+    jcfg, jparams, tcfg, tparams = make_pair(arch, dtype=dtype)
+    want = _TORCH_DTYPES[dtype]
+    for (p, t), (_, x) in zip(tree_paths(tparams),
+                              jax_tree_paths(to_numpy(jparams))):
+        assert t.dtype == want, p
+        assert torch.equal(t, torch.tensor(as_np(x)).to(want)), p
 
 
 def test_init_is_seeded_and_scaled():
@@ -203,8 +242,18 @@ def test_attention_calls_match_reference():
             _np(attn.decode_attention(q[:, 0], k, v, tcur)),
             _np(jax_attn.decode_attention(jq[:, 0], jk, jv, jnp.asarray(cur))),
             **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        attn.decode_attention(q[:, 0], k, v, 7, window=8)
+    # sliding-window layers (ring-buffer caches): valid length min(cur, 8)
+    for cur in (5, np.array([3, 40])):
+        tcur = cur if isinstance(cur, int) else torch.from_numpy(cur)
+        np.testing.assert_allclose(
+            _np(attn.decode_attention(q[:, 0], k[:, :8], v[:, :8], tcur,
+                                      window=8)),
+            _np(jax_attn.decode_attention(jq[:, 0], jk[:, :8], jv[:, :8],
+                                          jnp.asarray(cur), window=8)), **TOL)
+    np.testing.assert_allclose(
+        _np(attn.prefill_attention(q, k, v, window=8)),
+        _np(jax_attn.blocked_attention(jq, jk, jv, causal=True, window=8,
+                                       block_q=16, block_kv=16)), **TOL)
 
 
 def test_update_kv_cache_scalar_and_per_slot():
@@ -222,8 +271,21 @@ def test_update_kv_cache_scalar_and_per_slot():
     jkc, jvc = jax_attn.update_kv_cache(jkc, jvc, jk1, -jk1, jnp.asarray(pos))
     np.testing.assert_array_equal(_np(kc), _np(jkc))
     np.testing.assert_array_equal(_np(vc), _np(jvc))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        attn.update_kv_cache(kc, vc, k1, k1, 0, window=4)
+    # a ring buffer of 4 slots: a prefill's last 4 entries at pos % 4, then
+    # per-slot and shared positions wrapping it
+    rc, rv = torch.zeros(3, 4, 2, 16), torch.zeros(3, 4, 2, 16)
+    jrc, jrv = jnp.zeros((3, 4, 2, 16)), jnp.zeros((3, 4, 2, 16))
+    attn.update_kv_cache(rc, rv, kn[:, 1:], -kn[:, 1:], 1, window=4)
+    jrc, jrv = jax_attn.update_kv_cache(jrc, jrv, jkn[:, 1:], -jkn[:, 1:],
+                                        jnp.int32(1), window=4)
+    attn.update_kv_cache(rc, rv, k1, 3 * k1, torch.from_numpy(pos), window=4)
+    jrc, jrv = jax_attn.update_kv_cache(jrc, jrv, jk1, 3 * jk1,
+                                        jnp.asarray(pos), window=4)
+    attn.update_kv_cache(rc, rv, k1, k1, 6, window=4)
+    jrc, jrv = jax_attn.update_kv_cache(jrc, jrv, jk1, jk1, jnp.int32(6),
+                                        window=4)
+    np.testing.assert_array_equal(_np(rc), _np(jrc))
+    np.testing.assert_array_equal(_np(rv), _np(jrv))
 
 
 def test_head_tied_untied_and_softcap():

@@ -46,6 +46,26 @@ def test_greedy_tokens_identical_to_jax_slotserver(arch):
     assert all(len(o) == 6 or o[-1] == 1 for o in port_out)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "grok-1-314b",
+                                  "recurrentgemma-9b", "xlstm-1.3b"])
+def test_greedy_tokens_identical_for_moe_and_hybrid(arch):
+    """MoE, hybrid and recurrent decoders: five requests on two slots, so
+    slots are reused (the recurrent states of a reused slot start afresh),
+    prompts past the reduced window of 32 (the ring buffer wraps at
+    prefill and again while decoding), and a cut at max_len - 1."""
+    jcfg, jparams, tcfg, tparams = make_pair(arch)
+    prompts = [p for p in _prompts(seed=3, n=3, lo=4, hi=16)]
+    prompts += [np.arange(2, 42, dtype=np.int32) % 200 + 2,
+                np.arange(7, 60, dtype=np.int32)]
+    kw = dict(max_slots=2, max_len=48, max_new_tokens=8)
+    jax_out = _drain(JaxSlotServer(jcfg, jparams,
+                                   serve_cfg=JaxServeConfig(**kw)), prompts, 8)
+    port_out = _drain(SlotServer(tcfg, tparams, serve_cfg=ServeConfig(**kw),
+                                 device="cpu"), prompts, 8)
+    assert port_out == jax_out
+    assert len(port_out) == 5 and any(len(o) < 8 for o in port_out)
+
+
 def test_greedy_tokens_identical_with_truncation_and_length_limit():
     """A prompt longer than max_len-1 is cut to its tail, and a request that
     reaches max_len-1 finishes early, in both engines alike."""
@@ -206,6 +226,17 @@ def test_launch_serve_drains_on_cpu(arch, capsys):
     assert all(1 <= len(r.output) <= 4 for r in done)
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.output)
     assert "[serve] 5 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b",
+                                  "xlstm-1.3b"])
+def test_launch_serve_drains_moe_and_hybrid_on_cpu(arch, capsys):
+    cfg = get_config(arch).reduced()
+    done, lats = serve(cfg, n_requests=4, max_slots=2, max_len=80, max_new=4,
+                       seed=1, device="cpu")
+    assert len(done) == 4 and len(lats) == 4
+    assert all(1 <= len(r.output) <= 4 for r in done)
+    assert "[serve] 4 requests" in capsys.readouterr().out
 
 
 def test_launch_serve_is_seeded_and_takes_params():
