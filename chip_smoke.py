@@ -52,7 +52,7 @@ from repro_torch.launch.atoms import MM_TOL  # noqa: E402
 # decode attention's timed shapes and the limit they are held to there (the
 # tolerance's reasoning is in that module)
 from repro_torch.launch.decode_compare import (  # noqa: E402
-    DECODE_SHAPES, dropped_split_err, headline_limit)
+    DECODE_REL_TOL, DECODE_SHAPES, dropped_split_err, headline_limit)
 
 # kernel against its plain version on the same inputs, max abs error.
 # float32: both sides do f32 math and differ only in summation order and in
@@ -81,19 +81,39 @@ KV_BLOCK = 64
 # pass replays the kernel pass's routing (a rounding can flip a top-k
 # choice, which is no fault of a kernel).
 LOGIT_TOL = 0.1
+# llava-next-34b's logits against plain attention, on the same pass: at
+# d_model 7168 one bf16 rounding of the attention output that falls the
+# other way moves the logits by about 0.1 at any depth, so the kernels read
+# 0.135 / 0.139 (prefill / decode) and 0.149 / 0.138 (input_embeds) at 60
+# layers and 0.125-0.163 at 4 to 30 (``tools/logit_spread.py``; PERF.md),
+# above LOGIT_TOL with no fault.  Its limit sits above the largest of those
+# readings; ``planted_faults`` runs the same pass with one launch of each
+# kernel leaving out a KV block and fails unless the logits read above it.
+LOGIT_TOL_OF = {"llava-next-34b": 0.2}
 # timed shapes beside ``DECODE_SHAPES`` (full size, then the rehearsal's
 # toy): two slots of recurrentgemma-9b on its ring of 2048 keys, one full
-# and one not (MQA: 16 query heads on one KV head, head_dim 256)
-HYBRID_DECODE_SHAPES = {
+# and one not (MQA: 16 query heads on one KV head, head_dim 256); a
+# whisper-small decode step's cross-attention, 4 requests over 1500 frames
+# (MHA, G = 1, head_dim 64, every length 1500); the llama3-8b headline with
+# llava-next-34b's grouping (56 query heads on 8 KV heads, G = 7)
+MODEL_DECODE_SHAPES = {
     "recurrentgemma": ((2, 16, 1, 256, 2048, [2048, 1500]),
                        (2, 4, 1, 16, 64, [64, 30])),
+    "whisper_cross": ((4, 12, 12, 64, 1500, [1500] * 4),
+                      (2, 4, 4, 16, 45, [45, 45])),
+    "llava": ((4, 56, 8, 128, 2048, [300, 700, 1000, 1040]),
+              (2, 7, 1, 16, 64, [30, 64])),
 }
-# flash attention's timed shapes (B, S, Hq, Hk, D, window): a llama3-8b
-# prompt of 1000 tokens; a recurrentgemma-9b prompt of 4096 within its
-# window of 2048
+# flash attention's timed shapes (B, S, Hq, Hk, D, window, causal): a
+# llama3-8b prompt of 1000 tokens; a recurrentgemma-9b prompt of 4096
+# within its window of 2048; a whisper-small encoder layer over 1500 frames
+# (non-causal, MHA, head_dim 64)
 FLASH_SHAPES = {
-    "serving": ((1, 1000, 32, 8, 128, 0), (1, 40, 4, 2, 16, 0)),
-    "recurrentgemma": ((1, 4096, 16, 1, 256, 2048), (1, 70, 4, 1, 16, 32)),
+    "serving": ((1, 1000, 32, 8, 128, 0, True), (1, 40, 4, 2, 16, 0, True)),
+    "recurrentgemma": ((1, 4096, 16, 1, 256, 2048, True),
+                       (1, 70, 4, 1, 16, 32, True)),
+    "whisper_encoder": ((1, 1500, 12, 12, 64, 0, False),
+                        (1, 70, 4, 4, 16, 0, False)),
 }
 
 
@@ -413,7 +433,7 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
     which must lie below what a kernel that dropped one split would read."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
-    B, Hq, Hk, D, S, lens = {**DECODE_SHAPES, **HYBRID_DECODE_SHAPES}[
+    B, Hq, Hk, D, S, lens = {**DECODE_SHAPES, **MODEL_DECODE_SHAPES}[
         shape][flush is None]
     dt = torch.bfloat16
     q = _randn(torch, gen, (B, Hq, D), dt, dev)
@@ -479,21 +499,21 @@ def causal_pairs(S: int, window: int = 0) -> int:
 
 def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
                    shape="serving"):
-    """Flash attention at a serving path's shape (``FLASH_SHAPES``), causal,
-    within the shape's window.  bf16 is held row by row to
+    """Flash attention at a serving path's shape (``FLASH_SHAPES``), causal
+    or not, within the shape's window.  bf16 is held row by row to
     ``FLASH_REL_TOL``; with a window, two planted faults must read above
     that limit: the kernel run without the window, and the plain version
     with the window's first KV block left out of every row whose window is
     whole (the least such row counts)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, Hq, Hk, D, W = FLASH_SHAPES[shape][0 if real else 1]
+    B, S, Hq, Hk, D, W, causal = FLASH_SHAPES[shape][0 if real else 1]
     dt = getattr(torch, dtype)
     q = _randn(torch, gen, (B, S, Hq, D), dt, dev)
     k = _randn(torch, gen, (B, S, Hk, D), dt, dev)
     v = _randn(torch, gen, (B, S, Hk, D), dt, dev)
-    want = ref.attention_ref(q, k, v, causal=True, window=W)
-    got = ops.flash_attention(q, k, v, causal=True, window=W)
+    want = ref.attention_ref(q, k, v, causal=causal, window=W)
+    got = ops.flash_attention(q, k, v, causal=causal, window=W)
     err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL[("flash", dtype)]:
         fail(f"flash_attention {dtype} at the {shape} shape: err {err}")
@@ -502,6 +522,13 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
         fail(f"flash_attention {dtype} at the {shape} shape: reads {rel} "
              f"against its plain version, > {rel_limit}")
     faults = None
+    if not causal and S % KV_BLOCK and S > KV_BLOCK:
+        # a kernel that left out the keys of the last, partial KV block
+        whole = S - S % KV_BLOCK
+        short = ref.attention_ref(q, k[:, :whole], v[:, :whole],
+                                  causal=False)
+        faults = {f"last_{S - whole}_keys_dropped":
+                  row_rel_err(short, want).min().item()}
     if W:
         drop = min(KV_BLOCK, W // 2)
         late = ref.attention_ref(q, k, v, causal=True, window=W - drop)
@@ -511,23 +538,22 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
                       dtype)[0],
                   f"first_{drop}_keys_of_window_dropped":
                       row_rel_err(late, want)[:, whole].min().item()}
-        if not min(faults.values()) > rel_limit:
-            fail(f"flash_attention at the {shape} shape: a planted fault "
-                 f"reads within the limit {rel_limit}: {faults}")
+    if faults and not min(faults.values()) > rel_limit:
+        fail(f"flash_attention at the {shape} shape: a planted fault "
+             f"reads within the limit {rel_limit}: {faults}")
     # the kernel alone: one atom of every tile into an output made once, so
     # the memset of a fresh output is not timed
     o = torch.empty_like(q)
     one = lambda: ops.flash_attention_atom(q, k, v, o, start=0,
                                            num_tiles=ops.tile_space(q),
-                                           causal=True, window=W)
+                                           causal=causal, window=W)
     ms = time_ms(torch, one, iters=iters)
     host_ms = enqueue_ms(torch, one)
     if not _same(torch, o, got):
         fail(f"flash_attention_atom {dtype} at the {shape} shape differs "
              f"from the entry point")
-    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True,
-                                                        window=W),
-                       iters=iters)
+    plain_ms = time_ms(torch, lambda: ref.attention_ref(
+        q, k, v, causal=causal, window=W), iters=iters)
     q4, k4, v4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if W:       # the band as a boolean mask (True: attend)
         i = torch.arange(S, device=dev)
@@ -536,20 +562,21 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
             q4, k4, v4, attn_mask=band, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True)
+            q4, k4, v4, is_causal=causal, enable_gqa=True)
     lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max().item()
     if not lib_err <= 3e-2:
         fail(f"library yardstick disagrees with the plain version: {lib_err}")
     library_ms = time_ms(torch, lib, iters=iters)
     esz = q.element_size()
-    pairs = causal_pairs(S, W)                     # unmasked (query, key) pairs
+    # unmasked (query, key) pairs
+    pairs = causal_pairs(S, W) if causal else S * S
     flops = 4 * B * Hq * D * pairs
     n_bytes = (2 * B * S * Hq * D + 2 * B * S * Hk * D) * esz
     t_bytes = n_bytes / H100.hbm_bw * 1e3
     t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
                      else H100.peak_flops_f32) * 1e3
     return {"shape": {"B": B, "Sq": S, "Sk": S, "Hq": Hq, "Hk": Hk, "D": D,
-                      "causal": True, "window": W},
+                      "causal": causal, "window": W},
             "dtype": dtype, "max_abs_err": err,
             "err_limit": TOL[("flash", dtype)], "row_err": rel,
             "row_err_limit": rel_limit, "planted_faults": faults, "ms": ms,
@@ -601,6 +628,20 @@ def kernels_phase(torch, dev, real: bool):
                      lens=[0, 127, 129, 300], route="split", nsplit=4),
                 dict(B=3, Hq=16, Hk=1, D=256, S=2048, dtype="float32",
                      lens=[2048, 1, 0], route="f32")]
+        # the grouping of llava-next-34b (G = 7: seven of 16 MMA rows in
+        # bf16; a pass of 4 heads and one of 3 in f32) and whisper-small's
+        # MHA at head_dim 64 (G = 1): the cross K/V of 1500 frames, every
+        # length equal, and the self-attention cache of 448 rows
+        dec += [dict(B=4, Hq=56, Hk=8, D=128, S=2048, dtype="bfloat16",
+                     lens=[1, 300, 1040, 2048], route="split"),
+                dict(B=4, Hq=56, Hk=8, D=128, S=2048, dtype="float32",
+                     lens=[2048, 700, 0, 65], route="f32"),
+                dict(B=4, Hq=12, Hk=12, D=64, S=1500, dtype="bfloat16",
+                     lens=[1500] * 4, route="split"),
+                dict(B=4, Hq=12, Hk=12, D=64, S=448, dtype="bfloat16",
+                     lens=[33] * 4, route="split"),
+                dict(B=4, Hq=12, Hk=12, D=64, S=1500, dtype="float32",
+                     lens=[1500] * 4, route="f32")]
         refused = [dict(B=3, Hq=16, Hk=4, D=128, S=500, lens=[500, 0, 257]),
                    dict(B=2, Hq=8, Hk=2, D=64, S=333, lens=[65, 333])]
         fl = [dict(B=1, Sq=37, Sk=37, Hq=32, Hk=8, D=128, dtype="bfloat16"),
@@ -638,6 +679,19 @@ def kernels_phase(torch, dev, real: bool):
                dict(B=1, Sq=77, Sk=333, Hq=16, Hk=1, D=256, dtype="bfloat16",
                     causal=False),
                dict(B=1, Sq=200, Sk=200, Hq=4, Hk=1, D=256, dtype="float32")]
+        # whisper-small (MHA, head_dim 64): the encoder over 1500 frames for
+        # 4 requests; a 64-token target's cross-attention (Sq != Sk) and
+        # causal self-attention; llava-next-34b's prefill (G = 7)
+        fl += [dict(B=4, Sq=1500, Sk=1500, Hq=12, Hk=12, D=64,
+                    dtype="bfloat16", causal=False),
+               dict(B=4, Sq=64, Sk=1500, Hq=12, Hk=12, D=64,
+                    dtype="bfloat16", causal=False),
+               dict(B=4, Sq=64, Sk=64, Hq=12, Hk=12, D=64, dtype="bfloat16"),
+               dict(B=2, Sq=100, Sk=1500, Hq=12, Hk=12, D=64,
+                    dtype="float32", causal=False),
+               dict(B=1, Sq=1000, Sk=1000, Hq=56, Hk=8, D=128,
+                    dtype="bfloat16"),
+               dict(B=1, Sq=300, Sk=300, Hq=56, Hk=8, D=128, dtype="float32")]
         # the reference's test shapes (tests/test_kernels.py) at block 128;
         # the llama3-8b projections of a 1000-token prefill and of a
         # 4-slot decode step at the default block 256
@@ -666,13 +720,16 @@ def kernels_phase(torch, dev, real: bool):
                     route="guarded")]
     else:
         dec = [dict(B=3, Hq=4, Hk=2, D=16, S=40, dtype="float32", lens=[40, 0, 7]),
-               dict(B=2, Hq=4, Hk=4, D=16, S=33, dtype="bfloat16", lens=[1, 33], strided=True)]
+               dict(B=2, Hq=4, Hk=4, D=16, S=33, dtype="bfloat16", lens=[1, 33], strided=True),
+               dict(B=2, Hq=7, Hk=1, D=16, S=45, dtype="bfloat16", lens=[45, 45])]
         refused = [dict(B=2, Hq=4, Hk=2, D=16, S=70, lens=[0, 70])]
         fl = [dict(B=2, Sq=70, Sk=70, Hq=4, Hk=2, D=16, dtype="float32"),
               dict(B=1, Sq=20, Sk=90, Hq=4, Hk=1, D=16, dtype="bfloat16"),
               dict(B=1, Sq=90, Sk=50, Hq=2, Hk=2, D=16, dtype="float32"),
               dict(B=1, Sq=70, Sk=70, Hq=4, Hk=1, D=16, dtype="bfloat16",
-                   window=32)]
+                   window=32),
+              dict(B=2, Sq=45, Sk=45, Hq=4, Hk=4, D=16, dtype="bfloat16",
+                   causal=False)]
         mm = [dict(M=257, N=129, K=65, dtype="float32"),
               dict(M=40, N=300, K=64, dtype="bfloat16", bm=256,
                    route="guarded"),
@@ -708,11 +765,17 @@ def kernels_phase(torch, dev, real: bool):
                               shape="long_context")
     k1_ring = decode_headline(torch, dev, gen, flush,
                               iters=30 if real else 1, shape="recurrentgemma")
+    k1_cross = decode_headline(torch, dev, gen, flush,
+                               iters=30 if real else 1, shape="whisper_cross")
+    k1_llava = decode_headline(torch, dev, gen, flush,
+                               iters=30 if real else 1, shape="llava")
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
     k2_window = flash_headline(torch, dev, gen, iters=10 if real else 1,
                                real=real, shape="recurrentgemma")
     k2_f32 = flash_headline(torch, dev, gen, iters=10 if real else 1,
                             real=real, dtype="float32")
+    k2_encoder = flash_headline(torch, dev, gen, iters=20 if real else 1,
+                                real=real, shape="whisper_encoder")
     k3 = matmul_headline(torch, dev, gen, flush, iters=20 if real else 1,
                          real=real)
     del flush
@@ -720,9 +783,12 @@ def kernels_phase(torch, dev, real: bool):
         torch.cuda.synchronize()
     emit("kernels", cases=cases, decode_attention=k1,
          decode_attention_long_context=k1_long,
-         decode_attention_ring_d256=k1_ring, flash_attention=k2,
+         decode_attention_ring_d256=k1_ring,
+         decode_attention_whisper_cross=k1_cross,
+         decode_attention_llava_g7=k1_llava, flash_attention=k2,
          flash_attention_window_d256=k2_window,
-         flash_attention_float32=k2_f32, atom_matmul=k3,
+         flash_attention_float32=k2_f32,
+         flash_attention_whisper_encoder=k2_encoder, atom_matmul=k3,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
                   "decode: atoms (n=R) in reversed order bit-equal to n=1",
                   "rows / tiles outside an atom untouched",
@@ -734,6 +800,8 @@ def kernels_phase(torch, dev, real: bool):
                   "that limit",
                   "flash windowed headline: a window started one KV block "
                   "late reads above that limit in every whole-window row",
+                  "flash whisper-encoder headline: the last, partial KV "
+                  "block left out reads above that limit in every row",
                   "decode headlines: max abs error within 2^-6 of max|output|,"
                   " below what one dropped split reads"])
     return k1, k2, k3
@@ -797,6 +865,128 @@ def plain_attention():
 
 
 @contextlib.contextmanager
+def planted_faults(torch, kernel: str):
+    """Harness-only: the first launch of ``kernel`` in the pass leaves its
+    first KV block (``KV_BLOCK`` keys) out, as a kernel that dropped one
+    block or one decode split would: flash attention recomputes the query
+    rows past the block over the keys past it (causal, so each row keeps its
+    own keys after the block); decode attention runs over the cache past
+    the block, each row's length cut by as much."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    saved = d_ops.decode_attention_atom, f_ops.flash_attention_atom
+    left = [1]
+
+    def hit(keys) -> bool:
+        if left[0] and keys > KV_BLOCK:
+            left[0] -= 1
+            return True
+        return False
+
+    def decode(q, kc, vc, lens, o, *, start, num_rows):
+        if not hit(kc.shape[1]):
+            return saved[0](q, kc, vc, lens, o, start=start,
+                            num_rows=num_rows)
+        cut = (lens - KV_BLOCK).clamp_min(1).to(torch.int32).contiguous()
+        return saved[0](q, kc[:, KV_BLOCK:].contiguous(),
+                        vc[:, KV_BLOCK:].contiguous(), cut, o, start=start,
+                        num_rows=num_rows)
+
+    def flash(q, k, v, o, *, start, num_tiles, causal=True,
+              block_q=f_ops.BLOCK_Q, window=0):
+        saved[1](q, k, v, o, start=start, num_tiles=num_tiles, causal=causal,
+                 block_q=block_q, window=window)
+        if (causal and q.shape[1] == k.shape[1] and start == 0
+                and num_tiles == f_ops.tile_space(q, block_q)
+                and hit(k.shape[1])):
+            qs, ks, vs = (t[:, KV_BLOCK:].contiguous() for t in (q, k, v))
+            part = torch.empty_like(qs)
+            saved[1](qs, ks, vs, part, start=0,
+                     num_tiles=f_ops.tile_space(qs, block_q), causal=True,
+                     block_q=block_q, window=window)
+            o[:, KV_BLOCK:] = part
+        return o
+
+    if kernel == "decode_attention":
+        d_ops.decode_attention_atom = decode
+    else:
+        f_ops.flash_attention_atom = flash
+    try:
+        yield left
+    finally:
+        d_ops.decode_attention_atom, f_ops.flash_attention_atom = saved
+
+
+def fault_readings(torch, run, kernel_out, limit) -> dict:
+    """``run()`` (a pass's logits as a tuple) once with a planted fault in
+    each kernel; fails unless each fault reached the pass and its logits
+    read above ``limit`` against the sound kernel pass."""
+    out = {}
+    for kernel in ("flash_attention", "decode_attention"):
+        with planted_faults(torch, kernel) as left:
+            got = run()
+        if left[0]:
+            fail(f"planted {kernel} fault never reached the pass")
+        out[kernel] = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, kernel_out))
+        if not out[kernel] > limit:
+            fail(f"a {kernel} launch that leaves a KV block out moves the "
+                 f"logits by {out[kernel]}, not above the limit {limit}")
+    return out
+
+
+@contextlib.contextmanager
+def launch_checks(torch, worst):
+    """Harness-only: after each attention launch that writes its whole
+    output (every launch of the serving path), hold the output to the plain
+    version on the same inputs: bf16 flash attention row by row
+    (``FLASH_REL_TOL``), f32 by ``TOL``; bf16 decode attention by its max
+    abs error over its max|output| (``DECODE_REL_TOL``), f32 by ``TOL``.
+    Records the worst reading of each kernel in ``worst`` and fails at the
+    first launch above its limit."""
+    from repro_torch.kernels.decode_attention import ops as d_ops, ref as d_ref
+    from repro_torch.kernels.flash_attention import ops as f_ops, ref as f_ref
+    saved = d_ops.decode_attention_atom, f_ops.flash_attention_atom
+
+    def note(kernel, err, limit):
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        worst[f"{kernel}_launches_checked"] = worst.get(
+            f"{kernel}_launches_checked", 0) + 1
+        if not err <= limit:
+            fail(f"{kernel} on the path reads {err} against its plain "
+                 f"version on the same inputs (limit {limit})")
+
+    def decode(q, kc, vc, lens, o, *, start, num_rows):
+        saved[0](q, kc, vc, lens, o, start=start, num_rows=num_rows)
+        if start == 0 and num_rows == q.shape[0] * kc.shape[2]:
+            want = d_ref.decode_attention_ref(q, kc, vc, lens).float()
+            err = (o.float() - want).abs().max().item()
+            if q.dtype == torch.bfloat16:
+                note("decode_attention",
+                     err / max(want.abs().max().item(), 1e-30),
+                     DECODE_REL_TOL)
+            else:
+                note("decode_attention", err, TOL[("decode", "float32")])
+        return o
+
+    def flash(q, k, v, o, *, start, num_tiles, causal=True,
+              block_q=f_ops.BLOCK_Q, window=0):
+        saved[1](q, k, v, o, start=start, num_tiles=num_tiles,
+                 causal=causal, block_q=block_q, window=window)
+        if start == 0 and num_tiles == f_ops.tile_space(q, block_q):
+            want = f_ref.attention_ref(q, k, v, causal=causal, window=window)
+            note("flash_attention", *flash_misses(
+                o, want, str(q.dtype).split(".")[-1]))
+        return o
+
+    d_ops.decode_attention_atom, f_ops.flash_attention_atom = decode, flash
+    try:
+        yield worst
+    finally:
+        d_ops.decode_attention_atom, f_ops.flash_attention_atom = saved
+
+
+@contextlib.contextmanager
 def moe_routing(log, replay: bool):
     """Harness-only: record every MoE layer's expert choices into ``log`` in
     call order, or replay them in that order (``replay``), so that a plain
@@ -826,37 +1016,21 @@ def routing_flips(torch, a, b) -> int:
                for x, y in zip(a, b))
 
 
-def profile_phase(torch, dev, cfg, params, arch: str) -> None:
-    """``--profile``: device time by kernel over one 1000-token prefill and
-    eight decode steps of 4 slots, from ``torch.profiler``; a model with a
-    sliding window takes a prompt of 2100 tokens and positions past it."""
+def profile_windows(torch, windows: dict) -> dict:
+    """Each window (a function that ends in a synchronise) once to warm up,
+    once timed on the host clock, once under ``torch.profiler``: wall ms,
+    device busy ms (the device-side rows), idle share, top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer
-    windowed = cfg.hybrid is not None and cfg.hybrid.window > 0
-    B, L, plen = (4, 4608, 2100) if windowed else (4, 2048, 1000)
-    caches = transformer.init_caches(cfg, B, L, device=dev)
-    toks = torch.randint(2, cfg.vocab_size, (1, plen), device=dev)
-    last = torch.randint(2, cfg.vocab_size, (B,), device=dev)
-    pos = torch.tensor([300, 700, 1000, 1040], device=dev) + (plen - 1000)
-
-    def window(kind):
-        if kind == "prefill":
-            transformer.prefill(params, cfg, toks, caches=caches, slot=2)
-        else:
-            for i in range(8):
-                transformer.decode_step(params, cfg, last, pos + i, caches)
-        torch.cuda.synchronize()
-
     out = {}
-    for kind in ("prefill", "decode"):
-        window(kind)                                  # warm up
+    for kind, window in windows.items():
+        window()                                      # warm up
         t0 = time.perf_counter()
-        window(kind)
+        window()
         wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            window(kind)
+            window()
         # device-side rows only: an operator's row repeats its kernels' time
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
@@ -868,8 +1042,80 @@ def profile_phase(torch, dev, cfg, params, arch: str) -> None:
                      "device_idle_share": max(0.0, 1 - busy / wall_ms),
                      "top": [{"kernel": k[:60], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
+    return out
+
+
+def profile_phase(torch, dev, cfg, params, arch: str) -> None:
+    """``--profile``: device time by kernel over one 1000-token prefill and
+    eight decode steps of 4 slots, from ``torch.profiler``; a model with a
+    sliding window takes a prompt of 2100 tokens and positions past it."""
+    from repro_torch.models import transformer
+    windowed = cfg.hybrid is not None and cfg.hybrid.window > 0
+    B, L, plen = (4, 4608, 2100) if windowed else (4, 2048, 1000)
+    caches = transformer.init_caches(cfg, B, L, device=dev)
+    toks = torch.randint(2, cfg.vocab_size, (1, plen), device=dev)
+    last = torch.randint(2, cfg.vocab_size, (B,), device=dev)
+    pos = torch.tensor([300, 700, 1000, 1040], device=dev) + (plen - 1000)
+
+    def prefill():
+        transformer.prefill(params, cfg, toks, caches=caches, slot=2)
+        torch.cuda.synchronize()
+
+    def decode():
+        for i in range(8):
+            transformer.decode_step(params, cfg, last, pos + i, caches)
+        torch.cuda.synchronize()
+
+    out = profile_windows(torch, {"prefill": prefill, "decode": decode})
     emit("profile", arch=arch, window={"prefill": f"1 prompt of {plen} tokens",
                                        "decode": "8 steps, 4 slots"}, **out)
+
+
+def embeds_vs_plain(torch, dev, cfg, params, plen: int) -> dict:
+    """A VLM's ``input_embeds`` path (through ``vlm_proj``): a prompt of
+    ``plen`` embedding rows through ``prefill`` and one embedding row
+    through ``decode_step``, with the kernels and with plain attention."""
+    from repro_torch.models import transformer
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    dt = getattr(torch, cfg.dtype)
+    emb = _randn(torch, gen, (2, plen + 1, cfg.d_model), dt, dev)
+
+    def run():
+        lp, caches = transformer.prefill(params, cfg, None,
+                                         input_embeds=emb[:, :plen],
+                                         max_len=plen + 8)
+        ld, _ = transformer.decode_step(params, cfg, None, plen, caches,
+                                        input_embeds=emb[:, plen:])
+        return lp, ld
+
+    checked = {}
+    before = read_counts()
+    with launch_checks(torch, checked):
+        lp_k, ld_k = run()
+    after = read_counts()
+    with plain_attention():
+        lp_p, ld_p = run()
+    n_attn = transformer.attention_layers(cfg)
+    if dev.type == "cuda" and (
+            after["flash_attention"] - before["flash_attention"] != n_attn
+            or after["decode_attention"] - before["decode_attention"]
+            != n_attn):
+        fail(f"{cfg.name}: the input_embeds path launched "
+             f"{after} - {before}, not {n_attn} of each attention kernel")
+    for a in (lp_k, ld_k):
+        if a.shape != (2, cfg.vocab_size) or not bool(torch.isfinite(a).all()):
+            fail(f"{cfg.name}: input_embeds logits not finite or of shape "
+                 f"{tuple(a.shape)}")
+    errs = {"prefill": (lp_k - lp_p).abs().max().item(),
+            "decode": (ld_k - ld_p).abs().max().item()}
+    limit = LOGIT_TOL_OF.get(cfg.name, LOGIT_TOL)
+    if dev.type == "cuda" and max(errs.values()) > limit:
+        fail(f"{cfg.name}: input_embeds, kernels vs plain attention: {errs} "
+             f"(limit {limit})")
+    return {**errs, "limit": limit,
+            "embedding_rows": plen, "logit_abs_max": lp_p.abs().max().item(),
+            "launches_vs_plain": checked}
 
 
 def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
@@ -947,12 +1193,15 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
         return lp.float(), ld.float()
 
     routing = None
+    checked = {}
     if cfg.moe is None:
-        lp_k, ld_k = run()
+        with launch_checks(torch, checked):
+            lp_k, ld_k = run()
         with plain_attention():
             lp_p, ld_p = run()
     else:
-        with moe_routing([], replay=False) as kernel_ids:
+        with moe_routing([], replay=False) as kernel_ids, \
+                launch_checks(torch, checked):
             lp_k, ld_k = run()
         with plain_attention(), moe_routing(kernel_ids, replay=True):
             lp_p, ld_p = run()
@@ -970,9 +1219,16 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
             fail(f"{arch}: {name} logits not finite or of shape {tuple(a.shape)}")
     err_p = (lp_k - lp_p).abs().max().item()
     err_d = (ld_k - ld_p).abs().max().item()
-    if real and max(err_p, err_d) > LOGIT_TOL:
+    limit = LOGIT_TOL_OF.get(arch, LOGIT_TOL)
+    if real and max(err_p, err_d) > limit:
         fail(f"{arch}: kernels vs plain attention: prefill logits differ by "
-             f"{err_p}, decode logits by {err_d} (limit {LOGIT_TOL})")
+             f"{err_p}, decode logits by {err_d} (limit {limit})")
+    # a limit of its own must still see a kernel that leaves a block out
+    faults = (fault_readings(torch, run, (lp_k, ld_k), limit)
+              if real and arch in LOGIT_TOL_OF else None)
+
+    vlm = (embeds_vs_plain(torch, dev, cfg, params, plen)
+           if cfg.frontend == "patch_stub" else None)
 
     tokens = sum(len(r.output) for r in done)
     emit("serve", arch=arch, full_size=real, n_layers=cfg.n_layers,
@@ -985,13 +1241,155 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
          prefills=calls["prefill"], decode_steps=calls["decode_step"],
          attention_layers=n_attn, launches=launches,
          logit_err_vs_plain={"prefill": err_p, "decode": err_d,
-                             "limit": LOGIT_TOL, "prompt_tokens": plen,
+                             "limit": limit, "planted_faults": faults,
+                             "prompt_tokens": plen,
                              "logit_abs_max": lp_p.abs().max().item(),
                              "moe_routing": routing},
+         launches_vs_plain=checked,
+         input_embeds_vs_plain=vlm,
          peak_memory_bytes=serve_peak, init_peak_memory_bytes=init_peak)
     if with_profile and real:
         profile_phase(torch, dev, cfg, params, arch)
     del params
+    if real:
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder path
+# ---------------------------------------------------------------------------
+
+def encdec_phase(torch, dev, *, real: bool, batch: int, new_tokens: int,
+                 max_len: int, prompt: int = 4, target: int = 64,
+                 with_profile: bool = False):
+    """whisper-small through ``repro_torch.models.registry``: ``batch``
+    requests of random frames (1500 at full size) and a ``prompt``-token
+    prompt, ``serve_prefill`` (encode, the cross K/V, the first token at
+    position 0), then ``new_tokens`` greedy ``serve_decode`` steps at
+    positions 1, 2, ...  Counts set to 0 just before, read just after: flash
+    attention once per encoder layer, decode attention twice per decoder
+    layer a step (the prefill is one).  Then the path against itself with
+    plain attention: ``serve_prefill``, three decode steps and ``forward``
+    at a ``target``-token target.  ``with_profile`` adds a ``profile``
+    line: ``serve_prefill`` of the batch, then eight decode steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import (init_model, serve_decode,
+                                             serve_prefill)
+    cfg = get_config("whisper-small")
+    if not real:
+        cfg = cfg.reduced()
+    S_src = cfg.max_source_positions if real else 45
+    if real:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_model(cfg, seed=0, device=dev)
+    if real:
+        torch.cuda.synchronize()
+    init_s = time.time() - t0
+    init_peak = torch.cuda.max_memory_allocated() if real else None
+    if real:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    dt = getattr(torch, cfg.dtype)
+    frames = _randn(torch, gen, (batch, S_src, cfg.d_model), dt, dev)
+    toks = torch.randint(2, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    inputs = {"frames": frames, "tokens": toks}
+
+    # the main path, counts set to 0 first
+    reset_counts()
+    with count_calls(encdec, ("encode", "decode_step")) as calls:
+        t0 = time.time()
+        logits, caches = serve_prefill(params, cfg, inputs, max_len=max_len)
+        out = [logits.argmax(-1)]
+        if real:
+            torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        for pos in range(1, new_tokens + 1):
+            logits, caches = serve_decode(params, cfg, out[-1], pos, caches)
+            out.append(logits.argmax(-1))
+        streams = torch.stack(out, 1).cpu()
+        seconds = time.time() - t0
+    launches = read_counts()
+    serve_peak = torch.cuda.max_memory_allocated() if real else None
+    want = {"flash_attention": calls["encode"] * cfg.n_encoder_layers,
+            "decode_attention": calls["decode_step"] * 2 * cfg.n_layers,
+            "atom_matmul": 0}
+    if (calls["encode"], calls["decode_step"]) != (1, new_tokens + 1):
+        fail(f"whisper-small: {calls} calls for one prefill and "
+             f"{new_tokens} decode steps")
+    if real and launches != want:
+        fail(f"whisper-small: launch counts {launches} but the path implies "
+             f"{want}")
+    if not (bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (batch, cfg.vocab_size)
+            and tuple(streams.shape) == (batch, new_tokens + 1)
+            and bool(((streams >= 0) & (streams < cfg.vocab_size)).all())):
+        fail(f"whisper-small: logits {tuple(logits.shape)} or tokens "
+             f"{tuple(streams.shape)} out of shape or range")
+
+    # the path against itself: kernels vs plain attention
+    tgt = torch.randint(2, cfg.vocab_size, (batch, target), generator=gen,
+                        device=dev)
+
+    def run():
+        lp, c = serve_prefill(params, cfg, inputs, max_len=max_len)
+        res = {"prefill": lp}
+        for i in range(3):
+            res[f"decode_{i + 1}"], c = serve_decode(params, cfg, tgt[:, i],
+                                                     1 + i, c)
+        h = encdec.forward(params, cfg, frames, tgt)
+        res["forward"] = encdec.lm_logits(params, cfg, h)
+        return res
+
+    checked = {}
+    with launch_checks(torch, checked):
+        kern = run()
+    with plain_attention():
+        plain = run()
+    errs = {}
+    for name, a in kern.items():
+        if not bool(torch.isfinite(a).all()):
+            fail(f"whisper-small: {name} logits not finite")
+        errs[name] = (a - plain[name]).abs().max().item()
+    if real and max(errs.values()) > LOGIT_TOL:
+        fail(f"whisper-small: kernels vs plain attention: {errs} "
+             f"(limit {LOGIT_TOL})")
+    tokens = batch * (new_tokens + 1)
+    emit("encdec", arch=cfg.name, full_size=real,
+         encoder_layers=cfg.n_encoder_layers, decoder_layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, requests=batch,
+         source_frames=S_src, prompt_tokens=prompt, max_len=max_len,
+         tokens=tokens, init_seconds=init_s, prefill_seconds=prefill_s,
+         seconds=seconds, tokens_per_s=tokens / seconds,
+         decode_tokens_per_s=batch * new_tokens / (seconds - prefill_s),
+         encodes=calls["encode"], decode_steps=calls["decode_step"],
+         launches=launches,
+         logit_err_vs_plain={**errs, "limit": LOGIT_TOL,
+                             "target_tokens": target,
+                             "logit_abs_max": plain["forward"].abs().max()
+                             .item()},
+         launches_vs_plain=checked, first_tokens=streams[:, :8].tolist(),
+         peak_memory_bytes=serve_peak, init_peak_memory_bytes=init_peak)
+    if with_profile and real:
+        def prefill():
+            serve_prefill(params, cfg, inputs, max_len=max_len)
+            torch.cuda.synchronize()
+
+        def decode():
+            for pos in range(1, 9):
+                serve_decode(params, cfg, tgt[:, pos], pos, caches)
+            torch.cuda.synchronize()
+
+        emit("profile", arch=cfg.name, window={
+            "prefill": f"serve_prefill of {batch} requests of {S_src} frames",
+            "decode": f"8 steps, {batch} requests"},
+             **profile_windows(torch, {"prefill": prefill,
+                                       "decode": decode}))
+    del params, caches, kern, plain
     if real:
         torch.cuda.empty_cache()
     return launches
@@ -1083,6 +1481,17 @@ def main(argv) -> int:
     sizes = (dict(n_requests=3, max_slots=2, max_len=512, max_new=8) if real
              else dict(n_requests=3, max_slots=2, max_len=32, max_new=3))
     runs.append(serve_phase(torch, dev, "xlstm-1.3b", real=real,
+                            with_profile=prof, **sizes))
+    # the encoder-decoder (whisper-small: 4 requests of 1500 frames, 32 new
+    # tokens) and the VLM backbone (llava-next-34b, 34.4 B params: 2 slots,
+    # 8 new tokens, and the input_embeds path at a 200-row prompt)
+    sizes = (dict(batch=4, new_tokens=32, max_len=448) if real
+             else dict(batch=2, new_tokens=3, max_len=16, target=8))
+    runs.append(encdec_phase(torch, dev, real=real, with_profile=prof,
+                             **sizes))
+    sizes = (dict(n_requests=4, max_slots=2, max_len=2048, max_new=8) if real
+             else dict(n_requests=3, max_slots=2, max_len=32, max_new=3))
+    runs.append(serve_phase(torch, dev, "llava-next-34b", real=real,
                             with_profile=prof, **sizes))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     launches["atom_matmul"] = atoms_phase(torch, dev, real)["atom_matmul"]

@@ -3,7 +3,10 @@ stream, reporting latency and throughput.
 
 Runs on the GPU unless ``--device cpu`` is given.  Serves every decoder-only
 config: dense, MoE (qwen2-moe-a2.7b, grok-1-314b), hybrid RG-LRU + local
-attention (recurrentgemma-9b) and xLSTM (xlstm-1.3b).  Submitting the
+attention (recurrentgemma-9b), xLSTM (xlstm-1.3b) and the VLM backbone
+(llava-next-34b, from token prompts, as the reference's server does).  The
+encoder-decoder whisper-small is served through
+``repro_torch.models.registry.serve_prefill / serve_decode``.  Submitting the
 deployment to the online control plane (``--ctl-state-dir``) is not ported
 yet.
 
@@ -84,7 +87,9 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.is_encoder_decoder:
-        raise SystemExit("SlotServer serves decoder-only configs")
+        raise SystemExit("SlotServer serves decoder-only configs; serve "
+                         f"{cfg.name} through repro_torch.models.registry."
+                         "serve_prefill / serve_decode")
     serve(cfg, n_requests=args.requests, max_slots=args.max_slots,
           max_len=args.max_len, max_new=args.max_new, seed=args.seed,
           device=args.device, min_prompt=args.min_prompt)

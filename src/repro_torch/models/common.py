@@ -43,10 +43,24 @@ def make_generator(seed: int, device) -> torch.Generator:
 # Initializers (seeded, shape-aware); drawn in f32 on the generator's device
 # ---------------------------------------------------------------------------
 
+# Most float32 elements one draw of ``normal_init`` holds at once (256 MB).
+# A larger leaf is drawn a few leading-axis slices at a time (at least one:
+# one layer of a stacked leaf) into a tensor of the target dtype, so the f32
+# transient of a 34 B model's init is one layer's slice, not a whole stack.
+DRAW_ELEMS = 1 << 26
+
+
 def normal_init(gen: torch.Generator, shape, dtype, scale: float = 0.02):
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(scale).to(dtype)
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    width = math.prod(shape[1:])
+    rows = out.view(shape[0] if shape else 1, width)
+    step = max(1, DRAW_ELEMS // max(1, width))
+    for i in range(0, rows.shape[0], step):
+        part = rows[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
+                               dtype=torch.float32).mul_(scale))
+    return out
 
 
 def fan_in_init(gen: torch.Generator, shape, dtype, fan_axis: int = 0):

@@ -1,4 +1,5 @@
-"""Decoder-only LM: dense, MoE, hybrid (RG-LRU + local attention) and xLSTM.
+"""Decoder-only LM: dense, MoE, hybrid (RG-LRU + local attention), xLSTM and
+the VLM backbone.
 
 Layer stacks keep the reference layout: the per-arch layer pattern (e.g.
 ``("rec", "rec", "attn")`` for RecurrentGemma, ``("mlstm",)*7 + ("slstm",)``
@@ -19,8 +20,11 @@ into the cache tensors they are given and return the same objects.  A
 prefill into a slot of shared caches starts that slot's recurrent state
 from the initial values, as the reference's fresh caches do.
 
-Encoder-decoder models and the VLM / audio frontends are not ported yet;
-``check_supported`` names the ROADMAP item.
+Every entry point takes token ids or, for the VLM (``frontend ==
+"patch_stub"``), precomputed patch embeddings ``input_embeds`` ([B,S,D] for
+a prompt, [B,1,D] for a decode step), which go through the multimodal
+projector ``vlm_proj/w`` [D,D] first.  The encoder-decoder models have
+their own module, ``models/encdec.py``; ``models/registry.py`` picks one.
 """
 from __future__ import annotations
 
@@ -33,24 +37,14 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (dtype_of, make_generator,
-                                       resolve_device, tree_map, tree_paths)
+from repro_torch.models.common import (dot, dtype_of, make_generator,
+                                       normal_init, resolve_device, tree_map,
+                                       tree_paths)
 from repro_torch.models.layers import (apply_head, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_head,
                                        init_mlp, init_norm, rope_table)
 
 PyTree = Any
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP A7)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP A7)")
 
 
 def layer_pattern(cfg: ArchConfig) -> tuple[str, ...]:
@@ -116,7 +110,6 @@ def _init_block(gen, cfg: ArchConfig, kind: str, stack: tuple = ()) -> PyTree:
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> PyTree:
     """Random parameters drawn on ``device`` (None: the GPU) from a
     ``torch.Generator`` seeded with ``seed``."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = make_generator(seed, device)
     dt = dtype_of(cfg.dtype)
@@ -127,6 +120,9 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> PyTree:
     if not cfg.tie_embeddings:
         params["head"] = init_head(gen, cfg.d_model, cfg.vocab_size, dt)
     params["final_norm"] = init_norm(gen, cfg.d_model, cfg.norm, dt)
+    if cfg.frontend == "patch_stub":
+        params["vlm_proj"] = {"w": normal_init(gen, (cfg.d_model, cfg.d_model),
+                                               dt)}
     blocks = {}
     if n_groups:
         for pos, kind in enumerate(pat):
@@ -273,11 +269,13 @@ def _layers(params, cfg: ArchConfig, caches=None, rows=None):
 
 
 def embed_inputs(params, cfg: ArchConfig, tokens=None, input_embeds=None):
-    if input_embeds is not None:
-        raise NotImplementedError(
-            "precomputed input embeddings belong to the VLM frontend "
-            "(ROADMAP A7)")
-    return embed_tokens(params["embed"], tokens)
+    """Token ids through the embedding table, or precomputed embeddings
+    through the VLM's projector (where the model has one)."""
+    if input_embeds is None:
+        return embed_tokens(params["embed"], tokens)
+    if "vlm_proj" in params:
+        return dot(input_embeds, params["vlm_proj"]["w"])
+    return input_embeds
 
 
 def _positions(B: int, S: int, device):
@@ -286,8 +284,7 @@ def _positions(B: int, S: int, device):
 
 @torch.no_grad()
 def forward(params, cfg: ArchConfig, tokens=None, *, input_embeds=None):
-    """Token inputs -> final-norm hidden states [B,S,D]."""
-    check_supported(cfg)
+    """Token (or embedding) inputs -> final-norm hidden states [B,S,D]."""
     x = embed_inputs(params, cfg, tokens, input_embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
@@ -349,7 +346,6 @@ def _init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
-    check_supported(cfg)
     device = resolve_device(device)
     pat = layer_pattern(cfg)
     G, n_rem = divmod(cfg.n_layers, len(pat))
@@ -366,14 +362,14 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, token, pos, caches, *,
                 input_embeds=None):
-    """One-token decode.  token: [B] int.  ``pos`` may be an int or 0-d
+    """One-token decode.  token: [B] int (or ``input_embeds`` [B,1,D] with
+    ``token=None``).  ``pos`` may be an int or 0-d
     tensor (shared) or a [B] tensor of per-slot positions (continuous
     batching).
 
     Returns (logits [B,V] f32, caches); the caches are the tensors passed in,
     updated in place.
     """
-    check_supported(cfg)
     x = embed_inputs(params, cfg, token[:, None] if token is not None else None,
                      input_embeds)
     B = x.shape[0]
@@ -390,7 +386,8 @@ def decode_step(params, cfg: ArchConfig, token, pos, caches, *,
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, tokens, *, input_embeds=None,
             max_len: Optional[int] = None, caches=None, slot: int = 0):
-    """Process a prompt, filling caches.  Returns (last-position logits,
+    """Process a prompt (token ids [B,S], or ``input_embeds`` [B,S,D] with
+    ``tokens=None``), filling caches.  Returns (last-position logits,
     caches).
 
     With ``caches=None`` fresh caches of ``[B, max_len]`` are made.
@@ -401,7 +398,6 @@ def prefill(params, cfg: ArchConfig, tokens, *, input_embeds=None,
     they held (masked by the per-row lengths at decode); the recurrent
     states are computed from their initial values and replace the slot's.
     """
-    check_supported(cfg)
     x = embed_inputs(params, cfg, tokens, input_embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)

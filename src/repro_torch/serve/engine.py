@@ -64,7 +64,10 @@ class SlotServer:
                  serve_cfg: Optional[ServeConfig] = None, seed: int = 0,
                  clock: Optional[Callable[[], float]] = None, device=None):
         if cfg.is_encoder_decoder:
-            raise ValueError("SlotServer serves decoder-only LMs")
+            raise ValueError(
+                "SlotServer serves decoder-only LMs; serve an encoder-"
+                "decoder model through repro_torch.models.registry."
+                "serve_prefill / serve_decode")
         self.cfg = cfg
         self.device = resolve_device(device)
         # a ServeConfig() default argument would be evaluated once and

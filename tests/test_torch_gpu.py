@@ -492,3 +492,136 @@ def test_moe_and_hybrid_models_on_gpu_match_cpu(cuda, arch, dtype):
         assert (lg.cpu() - lc).abs().max().item() <= tol
     assert flash_ops.launches == before[0] + n_attn
     assert decode_ops.launches == before[1] + 2 * n_attn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hk,D,S,lens", [
+    # llava-next-34b's grouping, G = 7 (bf16: 7 of 16 MMA rows; f32: a
+    # pass of 4 heads, then one of 3)
+    (4, 56, 8, 128, 2048, [1, 300, 1040, 2048]),
+    (2, 14, 2, 128, 500, [0, 499]),
+    # whisper-small's cross-attention: MHA (G = 1), head_dim 64, 1500 keys
+    # (the last 64-key block partial), every row's length equal
+    (4, 12, 12, 64, 1500, [1500] * 4),
+    (2, 12, 12, 64, 1500, [1500, 1500]),
+])
+def test_decode_kernel_model_groupings(cuda, dtype, B, Hq, Hk, D, S, lens):
+    """Decode attention at the groupings of the models served since the
+    encoder-decoder and VLM slice: values against the plain version, padded
+    heads never reach the output, atoms bit-equal in any order; the cross
+    K/V as the model holds it, a per-layer view of [L,B,S,H,D]."""
+    rng = np.random.default_rng(S + Hq)
+    q = _randn(rng, (B, Hq, D), dtype, cuda)
+    kv = _randn(rng, (2, 3, B, S, Hk, D), dtype, cuda)
+    kc, vc = kv[0, 1], kv[1, 1]                    # layer 1 of 3
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = decode_ops.decode_attention(q, kc, vc, lens_t)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, kc, vc, lens_t)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        p = decode_ops.plan(q, kc, vc)
+        assert (got.float() - want.float()).abs().max().item() \
+            <= headline_limit(want) < dropped_split_err(q, kc, vc, lens_t,
+                                                         p["chunk"])
+    assert bool((got[lens_t == 0] == 0).all())
+    R = B * Hk
+    order = tuple(int(i) for i in rng.permutation(min(3, R)))
+    assert torch.equal(got, decode_ops.decode_attention(
+        q, kc, vc, lens_t, n_atoms=3, order=order))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,causal", [(1, 1500, 1500, False),
+                                            (2, 64, 1500, False),
+                                            (2, 64, 64, True)])
+def test_flash_kernel_whisper_shapes(cuda, dtype, B, Sq, Sk, causal):
+    """Flash attention at whisper-small's shapes (MHA, 12 heads, head_dim
+    64): the encoder non-causal over 1500 frames (not a multiple of the
+    64-key block), a target's cross-attention (Sq != Sk) and its causal
+    self-attention; bf16 row by row within 2^-6 of the row's max|output|."""
+    rng = np.random.default_rng(Sq + Sk)
+    q = _randn(rng, (B, Sq, 12, 64), dtype, cuda)
+    k = _randn(rng, (B, Sk, 12, 64), dtype, cuda)
+    v = _randn(rng, (B, Sk, 12, 64), dtype, cuda)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal)
+    d = (got.float() - want.float()).abs()
+    assert d.max().item() <= (2e-3 if dtype == torch.float32 else 3e-2)
+    if dtype == torch.bfloat16:
+        rel = d.amax(dim=(2, 3)) / want.float().abs().amax(dim=(2, 3))
+        assert rel.max().item() <= 2.0 ** -6
+    assert torch.equal(got, flash_ops.flash_attention(
+        q, k, v, causal=causal, n_atoms=3, order=(2, 0, 1)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_on_gpu_matches_cpu(cuda, dtype):
+    """Reduced whisper-small at head_dim 64 with the kernels on the card
+    against the same parameters with the plain versions on the CPU: encode
+    over 90 frames, ``serve_prefill``, two decode steps and ``forward``;
+    flash attention once per encoder layer, decode attention twice per
+    decoder layer a step."""
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import serve_decode, serve_prefill
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(),
+                              d_head=64, max_source_positions=90, dtype=dtype)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(rng.standard_normal((2, 90, cfg.d_model)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    toks = torch.from_numpy(rng.integers(2, 256, (2, 10)))
+    tol = 2e-3 if dtype == "float32" else 5e-2
+    before = flash_ops.launches, decode_ops.launches
+    lc, cc = serve_prefill(cpu, cfg, {"frames": frames, "tokens": toks},
+                           max_len=16)
+    lg, cg = serve_prefill(gpu, cfg, {"frames": frames.to(cuda),
+                                      "tokens": toks.to(cuda)}, max_len=16)
+    assert (lg.cpu() - lc).abs().max().item() <= tol
+    for step in range(2):
+        lc, _ = serve_decode(cpu, cfg, toks[:, 1 + step], 1 + step, cc)
+        lg, _ = serve_decode(gpu, cfg, toks[:, 1 + step].to(cuda), 1 + step,
+                             cg)
+        assert (lg.cpu() - lc).abs().max().item() <= tol
+    assert flash_ops.launches == before[0] + cfg.n_encoder_layers
+    assert decode_ops.launches == before[1] + 3 * 2 * cfg.n_layers
+    hc = encdec.forward(cpu, cfg, frames, toks)
+    hg = encdec.forward(gpu, cfg, frames.to(cuda), toks.to(cuda))
+    assert (hg.cpu().float() - hc.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_llava_on_gpu_matches_cpu(cuda, dtype):
+    """Reduced llava-next-34b at head_dim 64 (7 query heads on 1 KV head,
+    the published G = 7) on the card against the CPU: a 70-row embedding
+    prompt through ``vlm_proj``, a decode step fed one embedding row and
+    one fed a token."""
+    cfg = dataclasses.replace(get_config("llava-next-34b").reduced(),
+                              d_model=448, n_heads=7, n_kv_heads=1, d_head=64,
+                              dtype=dtype)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(3)
+    emb = torch.from_numpy(rng.standard_normal((2, 71, 448)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    tol = 2e-3 if dtype == "float32" else 5e-2
+    before = flash_ops.launches, decode_ops.launches
+    lc, cc = transformer.prefill(cpu, cfg, None, input_embeds=emb[:, :70],
+                                 max_len=80)
+    lg, cg = transformer.prefill(gpu, cfg, None,
+                                 input_embeds=emb[:, :70].to(cuda),
+                                 max_len=80)
+    assert (lg.cpu() - lc).abs().max().item() <= tol
+    lc, _ = transformer.decode_step(cpu, cfg, None, 70, cc,
+                                    input_embeds=emb[:, 70:])
+    lg, _ = transformer.decode_step(gpu, cfg, None, 70, cg,
+                                    input_embeds=emb[:, 70:].to(cuda))
+    assert (lg.cpu() - lc).abs().max().item() <= tol
+    nxt = torch.from_numpy(rng.integers(2, 256, (2,)))
+    lc, _ = transformer.decode_step(cpu, cfg, nxt, 71, cc)
+    lg, _ = transformer.decode_step(gpu, cfg, nxt.to(cuda), 71, cg)
+    assert (lg.cpu() - lc).abs().max().item() <= tol
+    assert flash_ops.launches == before[0] + cfg.n_layers
+    assert decode_ops.launches == before[1] + 2 * cfg.n_layers

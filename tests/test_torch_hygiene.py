@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py")))
 
 IMPORT = re.compile(
     r"^\s*(?:import\s+(?:jax|repro)(?:[.\s,]|$)"

@@ -131,6 +131,41 @@ def test_init_is_seeded_and_scaled():
     assert all(x.dtype == torch.bfloat16 for _, x in tree_paths(bf))
 
 
+def test_normal_init_draws_a_stacked_leaf_slice_by_slice(monkeypatch):
+    """A leaf larger than ``DRAW_ELEMS`` is drawn a few leading-axis slices
+    at a time into a tensor of the target dtype: no float32 draw holds more
+    than ``max(DRAW_ELEMS, one slice)`` elements, and the leaf comes out of
+    the right shape, dtype and scale, the same for the same seed."""
+    from repro_torch.models import common
+    draws = []
+    randn = torch.randn
+
+    def counted(shape, **kw):
+        draws.append(int(np.prod(shape)))
+        return randn(shape, **kw)
+
+    monkeypatch.setattr(common, "DRAW_ELEMS", 5000)
+    monkeypatch.setattr(torch, "randn", counted)
+    shape = (6, 40, 50)                            # slices of 2000 elements
+    for dtype in (torch.bfloat16, torch.float32):
+        draws.clear()
+        w = common.normal_init(common.make_generator(0, "cpu"), shape, dtype)
+        assert tuple(w.shape) == shape and w.dtype == dtype
+        assert draws == [4000, 4000, 4000]         # two slices a draw
+        assert abs(w.float().std().item() - 0.02) < 1e-3
+        again = common.normal_init(common.make_generator(0, "cpu"), shape,
+                                   dtype)
+        assert torch.equal(w, again)
+    draws.clear()
+    big = common.normal_init(common.make_generator(1, "cpu"), (3, 80, 80),
+                             torch.bfloat16)        # one slice above the cap
+    assert draws == [6400] * 3
+    fan = common.fan_in_init(common.make_generator(2, "cpu"), (4, 64, 100),
+                             torch.bfloat16, fan_axis=1)
+    assert abs(fan.float().std().item() - 0.125) < 5e-3
+    assert big.dtype == torch.bfloat16 and max(draws) == 6400
+
+
 # ---------------------------------------------------------------------------
 # modules, one by one
 # ---------------------------------------------------------------------------
