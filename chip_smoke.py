@@ -17,15 +17,20 @@ and read just after: it serves full-size ``llama3-8b``, ``olmo-1b``,
 with a window of 2048, prompts past it) and ``xlstm-1.3b`` (no attention)
 with random weights from a seed through ``repro_torch.launch.serve.serve``
 (decode and flash attention, as many launches as the config has attention
-layers), and runs the atom-count sweep ``repro_torch.launch.atoms.sweep``
-(the atomized matmul at the full-width ``llama3-8b`` projections, and flash
-attention).  Every phase prints one JSON line; any failure ends the run
-with a non-zero exit code.  The last line is
+layers), whisper-small and llava-next-34b, trains full-size ``olmo-1b``
+for 6 steps through ``repro_torch.launch.train.train`` (flash attention's
+forward and its backward kernel once per layer and microbatch; a 2-layer
+step held against plain attention forward and backward, with planted
+backward faults), and runs the atom-count sweep
+``repro_torch.launch.atoms.sweep`` (the atomized matmul at the full-width
+``llama3-8b`` projections, and flash attention).  Every phase prints one
+JSON line; any failure ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--profile`` adds a ``profile`` line for each of ``llama3-8b``,
-``qwen2-moe-a2.7b``, ``recurrentgemma-9b`` and ``xlstm-1.3b``: device time by
-kernel over a prefill and a few decode steps.
+``qwen2-moe-a2.7b``, ``recurrentgemma-9b``, ``xlstm-1.3b``, whisper-small
+and llava-next-34b (device time by kernel over a prefill and a few decode
+steps) and for ``olmo-1b``'s train step and its AdamW update alone.
 
 ``--rehearse`` walks the same phases on the CPU at toy sizes with the plain
 versions, to find faults in this script without a card.  It measures nothing
@@ -90,6 +95,45 @@ LOGIT_TOL = 0.1
 # readings; ``planted_faults`` runs the same pass with one launch of each
 # kernel leaving out a KV block and fails unless the logits read above it.
 LOGIT_TOL_OF = {"llava-next-34b": 0.2}
+# flash attention's backward (bf16) against autograd of the plain version in
+# f32 on the same bf16 inputs, row by row: for each query row of dQ and each
+# key row of dK and dV, the max abs error over its heads and head dims over
+# the row's largest |gradient| (``row_rel_err``).  The kernel rounds P and
+# dS to bf16 for its second products and its outputs to bf16 once, each a
+# relative 2^-8; a row sums up to thousands of such terms, so it differs by
+# a few bf16 steps at its largest value: the limit is eight (2^-5).  A row
+# whose exact gradient is zero or nearly (a query that sees one key: P = 1,
+# dS = 0) is measured against 2^-8 of the tensor's largest |gradient|
+# instead of its own (``bwd_row_err``).  The lse
+# the forward saves: f32 sums of exp in another order, 1e-4 absolute.
+BWD_REL_TOL = 2.0 ** -5
+LSE_TOL = 1e-4
+# the backward's checked shapes (B, Sq, Sk, Hq, Hk, D, causal, window): the
+# olmo-1b training shape (the headline), llama3-8b's GQA at 1000 tokens,
+# whisper-small's encoder (non-causal, 1500 frames, head_dim 64) and its
+# cross-attention (Sq != Sk), a sliding window at head_dim 128
+BWD_SHAPES = {
+    "olmo_train": ((2, 2048, 2048, 16, 16, 128, True, 0),
+                   (1, 70, 70, 4, 4, 16, True, 0)),
+    "llama3_gqa": ((1, 1000, 1000, 32, 8, 128, True, 0),
+                   (1, 40, 40, 4, 2, 16, True, 0)),
+    "whisper_encoder": ((2, 1500, 1500, 12, 12, 64, False, 0),
+                        (1, 45, 45, 4, 4, 16, False, 0)),
+    "whisper_cross": ((4, 64, 1500, 12, 12, 64, False, 0),
+                      (2, 8, 45, 4, 4, 16, False, 0)),
+    "window": ((1, 1000, 1000, 16, 4, 128, True, 256),
+               (1, 70, 70, 4, 2, 16, True, 32)),
+}
+# the train phase's kernel-vs-plain step (full-width olmo-1b, 2 layers, the
+# same params and batch): the loss, and every layer's slice of every
+# gradient leaf as its relative L2 error ||g_kernel - g_plain|| / ||g_plain||.
+# Both passes are bf16; the attention outputs and gradients differ by single
+# bf16 roundings, which the layers carry on, so a sound slice reads well
+# under a percent and the limit is 5 % (loss: 0.02 on a loss of ~11).  Two
+# planted faults (one K/V tile's dK zeroed in every backward launch; dQ
+# taken without delta) must read above it.
+TRAIN_GRAD_TOL = 0.05
+TRAIN_LOSS_TOL = 0.02
 # timed shapes beside ``DECODE_SHAPES`` (full size, then the rehearsal's
 # toy): two slots of recurrentgemma-9b on its ring of 2048 keys, one full
 # and one not (MQA: 16 query heads on one KV head, head_dim 256); a
@@ -588,6 +632,142 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
             "l2": "warm (the projections have just written q, k, v)"}
 
 
+def _bwd_inputs(torch, gen, dev, B, Sq, Sk, Hq, Hk, D):
+    dt = torch.bfloat16
+    return (_randn(torch, gen, (B, Sq, Hq, D), dt, dev),
+            _randn(torch, gen, (B, Sk, Hk, D), dt, dev),
+            _randn(torch, gen, (B, Sk, Hk, D), dt, dev),
+            _randn(torch, gen, (B, Sq, Hq, D), dt, dev))
+
+
+def bwd_row_err(got, want):
+    """``row_rel_err`` with each row's scale at least 2^-8 of the tensor's
+    largest |want|."""
+    d = (got.float() - want.float()).abs().amax(dim=(2, 3))
+    scale = want.float().abs().amax(dim=(2, 3))
+    return d / scale.clamp_min(2.0 ** -8 * scale.max().item() + 1e-30)
+
+
+def _bwd_readings(torch, got, want) -> dict:
+    """Row-by-row readings of (dq, dk, dv) against the plain gradients."""
+    return {name: bwd_row_err(g, w).max().item()
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def check_flash_bwd(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, causal,
+                    window, with_timing=False, iters=1):
+    """The backward kernel (bf16) against autograd of the plain version (f32
+    on the same inputs): dQ, dK, dV row by row within ``BWD_REL_TOL``; the
+    forward's lse against the plain logsumexp within ``LSE_TOL`` (+inf for
+    rows that see no key); atoms (n = 5, permuted) bit-equal to one.  With
+    ``with_timing`` also the headline's numbers and two planted faults."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v, do = _bwd_inputs(torch, gen, dev, B, Sq, Sk, Hq, Hk, D)
+    kw = dict(causal=causal, window=window)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_plain = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    fin = torch.isfinite(lse_plain)
+    lse_err = ((lse[fin] - lse_plain[fin]).abs().max().item()
+               if bool(fin.any()) else 0.0)
+    what = (f"flash_attention_bwd B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hk={Hk} "
+            f"D={D} causal={causal} window={window}")
+    if not (lse_err <= LSE_TOL and torch.equal(torch.isinf(lse), ~fin)):
+        fail(f"{what}: the forward's lse reads {lse_err} against the plain "
+             f"logsumexp (limit {LSE_TOL}) or its empty rows differ")
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out = ref.attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(out, leaves, do.float(), retain_graph=True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    rows = _bwd_readings(torch, got, want)
+    if not max(rows.values()) <= BWD_REL_TOL:
+        fail(f"{what}: reads {rows} against autograd of the plain version "
+             f"(limit {BWD_REL_TOL})")
+    five = ops.flash_attention_bwd(q, k, v, o, do, lse, n_atoms=5,
+                                   order=(3, 0, 4, 2, 1), **kw)
+    if not all(_same(torch, a, b) for a, b in zip(got, five)):
+        fail(f"{what}: atoms do not compose bit for bit")
+    res = {"row_err": rows, "row_err_limit": BWD_REL_TOL, "lse_err": lse_err,
+           "lse_err_limit": LSE_TOL,
+           "max_abs_err": max((g.float() - w).abs().max().item()
+                              for g, w in zip(got, want))}
+    if not with_timing:
+        return res
+    # planted faults: dQ without delta; one K/V tile's dK zeroed
+    delta = ops.attention_delta(o, do)
+    n_dq = ref.bwd_tile_space(q, k)[0]
+    total = ops.bwd_tile_space(q, k)
+    dq0, dk0, dv0 = (torch.zeros_like(t) for t in (q, k, v))
+    ops.flash_attention_bwd_atom(q, k, v, do, lse, torch.zeros_like(delta),
+                                 dq0, dk0, dv0, start=0, num_tiles=n_dq, **kw)
+    dk_hole = got[1].clone()
+    dk_hole[0, :ops.BLOCK_Q, 0] = 0
+    faults = {"dq_without_delta": bwd_row_err(dq0, want[0]).max().item(),
+              "one_dk_tile_zeroed": bwd_row_err(dk_hole, want[1]).max()
+              .item()}
+    if not min(faults.values()) > BWD_REL_TOL:
+        fail(f"{what}: a planted fault reads within {BWD_REL_TOL}: {faults}")
+    # the kernels alone: the delta pass and one atom of every tile into
+    # outputs made once
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+    def one():
+        d = ops.attention_delta(o, do)
+        ops.flash_attention_bwd_atom(q, k, v, do, lse, d, dq, dk, dv,
+                                     start=0, num_tiles=total, **kw)
+
+    ms = time_ms(torch, one, iters=iters)
+    if not all(_same(torch, a, b) for a, b in zip((dq, dk, dv), got)):
+        fail(f"{what}: the timed atom differs from the entry point")
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do.float(), retain_graph=True), iters=iters)
+    # the forward with and without the lse, one atom of every tile
+    o1 = torch.empty_like(q)
+    fwd = {name: time_ms(torch, lambda extra=extra: ops.flash_attention_atom(
+        q, k, v, o1, start=0, num_tiles=ops.tile_space(q), **kw, **extra),
+        iters=iters) for name, extra in (("fwd_ms", {}),
+                                         ("fwd_lse_ms", {"lse": lse}))}
+    import torch.nn.functional as F
+    lib_in = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=causal,
+                                             enable_gqa=True)
+    do4 = do.transpose(1, 2)
+    lib_g = torch.autograd.grad(lib_out, lib_in, do4, retain_graph=True)
+    lib_err = max(bwd_row_err(g.transpose(1, 2), w).max().item()
+                  for g, w in zip(lib_g, want))
+    if not lib_err <= 4 * BWD_REL_TOL:
+        fail(f"library yardstick's gradients disagree with the plain "
+             f"version: {lib_err}")
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lib_in, do4, retain_graph=True), iters=iters)
+    pairs = causal_pairs(Sq, window) if causal and Sq == Sk else Sq * Sk
+    flops = 10 * B * Hq * D * pairs
+    esz = q.element_size()
+    n_bytes = ((4 * B * Sq * Hq * D + 4 * B * Sk * Hk * D) * esz
+               + 2 * B * Hq * Sq * 4)        # q,o,do,dq; k,v,dk,dv; lse,delta
+    t_bytes = n_bytes / H100.hbm_bw * 1e3
+    t_ops = flops / H100.peak_flops * 1e3
+    return {**res, "planted_faults": faults, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_row_err": lib_err,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": n_bytes, **fwd,
+            "timed": "the delta pass and one atom of every tile"}
+
+
+def flash_bwd_cases(torch, dev, gen, real: bool, iters: int) -> dict:
+    out = {}
+    for name, shapes in BWD_SHAPES.items():
+        B, Sq, Sk, Hq, Hk, D, causal, W = shapes[0 if real else 1]
+        out[name] = {"shape": {"B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hk": Hk,
+                               "D": D, "causal": causal, "window": W},
+                     **check_flash_bwd(torch, dev, gen, B=B, Sq=Sq, Sk=Sk,
+                                       Hq=Hq, Hk=Hk, D=D, causal=causal,
+                                       window=W, iters=iters,
+                                       with_timing=name == "olmo_train")}
+    return out
+
+
 def kernels_phase(torch, dev, real: bool):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -778,6 +958,7 @@ def kernels_phase(torch, dev, real: bool):
                                 real=real, shape="whisper_encoder")
     k3 = matmul_headline(torch, dev, gen, flush, iters=20 if real else 1,
                          real=real)
+    bwd = flash_bwd_cases(torch, dev, gen, real, iters=10 if real else 1)
     del flush
     if real:
         torch.cuda.synchronize()
@@ -789,6 +970,7 @@ def kernels_phase(torch, dev, real: bool):
          flash_attention_window_d256=k2_window,
          flash_attention_float32=k2_f32,
          flash_attention_whisper_encoder=k2_encoder, atom_matmul=k3,
+         flash_attention_bwd=bwd,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
                   "decode: atoms (n=R) in reversed order bit-equal to n=1",
                   "rows / tiles outside an atom untouched",
@@ -803,8 +985,13 @@ def kernels_phase(torch, dev, real: bool):
                   "flash whisper-encoder headline: the last, partial KV "
                   "block left out reads above that limit in every row",
                   "decode headlines: max abs error within 2^-6 of max|output|,"
-                  " below what one dropped split reads"])
-    return k1, k2, k3
+                  " below what one dropped split reads",
+                  "flash backward: dQ, dK, dV row by row within 2^-5 of "
+                  "autograd of the plain version; the forward's lse against "
+                  "the plain logsumexp; atoms (n=5) in permuted order "
+                  "bit-equal to n=1; at the olmo-1b shape, dQ without delta "
+                  "and one dK tile zeroed read above that limit"])
+    return k1, k2, k3, bwd["olmo_train"]
 
 
 # ---------------------------------------------------------------------------
@@ -812,20 +999,28 @@ def kernels_phase(torch, dev, real: bool):
 # ---------------------------------------------------------------------------
 
 def _wrappers():
+    """Each kernel's launch counter: (module, attribute)."""
     from repro_torch.kernels.atom_matmul import ops as m_ops
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.flash_attention import ops as f_ops
-    return {"decode_attention": d_ops, "flash_attention": f_ops,
-            "atom_matmul": m_ops}
+    return {"decode_attention": (d_ops, "launches"),
+            "flash_attention": (f_ops, "launches"),
+            "atom_matmul": (m_ops, "launches"),
+            "flash_attention_bwd": (f_ops, "bwd_launches"),
+            "attention_delta": (f_ops, "delta_launches")}
+
+
+NO_TRAINING = {"flash_attention_bwd": 0, "attention_delta": 0}
 
 
 def reset_counts():
-    for ops in _wrappers().values():
-        ops.launches = 0
+    for ops, attr in _wrappers().values():
+        setattr(ops, attr, 0)
 
 
 def read_counts():
-    return {name: ops.launches for name, ops in _wrappers().items()}
+    return {name: getattr(ops, attr)
+            for name, (ops, attr) in _wrappers().items()}
 
 
 @contextlib.contextmanager
@@ -851,17 +1046,53 @@ def count_calls(module, names):
 
 @contextlib.contextmanager
 def plain_attention():
-    """Harness-only: route both wrappers' atoms to their plain versions, for
-    holding the model path with kernels against the same path without."""
+    """Harness-only: route the wrappers' atoms (decode, flash forward, flash
+    backward and its delta pass) to their plain versions, for holding the
+    model path with kernels against the same path without."""
     from repro_torch.kernels.decode_attention import ops as d_ops, ref as d_ref
     from repro_torch.kernels.flash_attention import ops as f_ops, ref as f_ref
-    saved = d_ops.decode_attention_atom, f_ops.flash_attention_atom
+    saved = (d_ops.decode_attention_atom, f_ops.flash_attention_atom,
+             f_ops.flash_attention_bwd_atom, f_ops.attention_delta)
     d_ops.decode_attention_atom = d_ref.decode_attention_atom_ref
     f_ops.flash_attention_atom = f_ref.flash_attention_atom_ref
+    f_ops.flash_attention_bwd_atom = f_ref.flash_attention_bwd_atom_ref
+    f_ops.attention_delta = f_ref.attention_delta_ref
     try:
         yield
     finally:
-        d_ops.decode_attention_atom, f_ops.flash_attention_atom = saved
+        (d_ops.decode_attention_atom, f_ops.flash_attention_atom,
+         f_ops.flash_attention_bwd_atom, f_ops.attention_delta) = saved
+
+
+@contextlib.contextmanager
+def backward_fault(torch, kind: str):
+    """Harness-only: every backward launch of the pass with a planted
+    fault: ``dk_tile`` zeroes the dK of the first K/V tile (batch row 0, KV
+    head 0, keys 0-63); ``no_delta`` takes dQ without delta (dS = P dP)."""
+    from repro_torch.kernels.flash_attention import ops as f_ops, ref as f_ref
+    saved = f_ops.flash_attention_bwd_atom
+    hits = [0]
+
+    def atom(q, k, v, do, lse, delta, dq, dk, dv, *, start, num_tiles,
+             **kw):
+        saved(q, k, v, do, lse, delta, dq, dk, dv, start=start,
+              num_tiles=num_tiles, **kw)
+        n_dq = f_ref.bwd_tile_space(q, k)[0]
+        if kind == "dk_tile" and start <= n_dq < start + num_tiles:
+            dk[0, :f_ops.BLOCK_Q, 0] = 0
+            hits[0] += 1
+        if kind == "no_delta" and start < n_dq:
+            scratch = [torch.empty_like(t) for t in (dk, dv)]
+            saved(q, k, v, do, lse, torch.zeros_like(delta), dq, *scratch,
+                  start=start, num_tiles=min(num_tiles, n_dq - start), **kw)
+            hits[0] += 1
+        return dq, dk, dv
+
+    f_ops.flash_attention_bwd_atom = atom
+    try:
+        yield hits
+    finally:
+        f_ops.flash_attention_bwd_atom = saved
 
 
 @contextlib.contextmanager
@@ -1016,6 +1247,29 @@ def routing_flips(torch, a, b) -> int:
                for x, y in zip(a, b))
 
 
+# kernel kinds of a profile, by words of the kernel's name (first match)
+KERNEL_KINDS = (
+    ("flash_attention_bwd", ("flash_attn_bwd", "delta_kernel")),
+    ("flash_attention", ("flash_attn",)),
+    ("decode_attention", ("decode_",)),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "matmul")),
+    ("elementwise_and_reductions", ("elementwise", "reduce", "vectorized",
+                                    "unrolled", "softmax", "norm", "cat",
+                                    "index", "scatter", "gather", "copy")))
+
+
+def _by_kind(rows) -> dict:
+    """Device ms of a profile's rows (name, ms, calls) summed by kind."""
+    out = {k: 0.0 for k, _ in KERNEL_KINDS}
+    out["other"] = 0.0
+    for name, ms, _ in rows:
+        low = name.lower()
+        kind = next((k for k, words in KERNEL_KINDS
+                     if any(w in low for w in words)), "other")
+        out[kind] += ms
+    return out
+
+
 def profile_windows(torch, windows: dict) -> dict:
     """Each window (a function that ends in a synchronise) once to warm up,
     once timed on the host clock, once under ``torch.profiler``: wall ms,
@@ -1040,6 +1294,7 @@ def profile_windows(torch, windows: dict) -> dict:
         busy = sum(r[1] for r in rows)
         out[kind] = {"wall_ms_unprofiled": wall_ms, "device_busy_ms": busy,
                      "device_idle_share": max(0.0, 1 - busy / wall_ms),
+                     "by_kind_ms": _by_kind(rows),
                      "top": [{"kernel": k[:60], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
     return out
@@ -1170,7 +1425,8 @@ def serve_phase(torch, dev, arch: str, *, real: bool, n_requests, max_slots,
     n_attn = transformer.attention_layers(cfg)
     want = {"flash_attention": calls["prefill"] * n_attn,
             "decode_attention": calls["decode_step"] * n_attn,
-            "atom_matmul": 0}           # not on the serving path
+            "atom_matmul": 0,           # not on the serving path
+            **NO_TRAINING}
     if real and (launches != want or (n_attn and (
             launches["flash_attention"] == 0
             or launches["decode_attention"] == 0))):
@@ -1317,7 +1573,7 @@ def encdec_phase(torch, dev, *, real: bool, batch: int, new_tokens: int,
     serve_peak = torch.cuda.max_memory_allocated() if real else None
     want = {"flash_attention": calls["encode"] * cfg.n_encoder_layers,
             "decode_attention": calls["decode_step"] * 2 * cfg.n_layers,
-            "atom_matmul": 0}
+            "atom_matmul": 0, **NO_TRAINING}
     if (calls["encode"], calls["decode_step"]) != (1, new_tokens + 1):
         fail(f"whisper-small: {calls} calls for one prefill and "
              f"{new_tokens} decode steps")
@@ -1396,6 +1652,187 @@ def encdec_phase(torch, dev, *, real: bool, batch: int, new_tokens: int,
 
 
 # ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _rel_l2(torch, a, b) -> float:
+    d = (a.float() - b.float()).norm().item()
+    return d / max(b.float().norm().item(), 1e-30)
+
+
+def _grad_readings(torch, params, got, want) -> dict:
+    """Each leaf's relative L2 error against the plain pass, layer slice by
+    layer slice for the stacked leaves (``blocks/...`` [G, ...])."""
+    from repro_torch.models.common import tree_leaves, tree_paths
+    out = {}
+    for (path, _), a, b in zip(tree_paths(params), tree_leaves(got),
+                               tree_leaves(want)):
+        if path.startswith("blocks/"):
+            out[path] = max(_rel_l2(torch, a[g], b[g])
+                            for g in range(a.shape[0]))
+        else:
+            out[path] = _rel_l2(torch, a, b)
+    return out
+
+
+def train_vs_plain(torch, dev, real: bool) -> dict:
+    """One gradient of the train step at full width and 2 layers, the same
+    params and batch with the kernels and with plain attention (forward and
+    backward): the loss and every layer slice of every gradient leaf within
+    ``TRAIN_LOSS_TOL`` / ``TRAIN_GRAD_TOL``; two planted backward faults
+    must read above that limit."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.registry import init_model
+    from repro_torch.train.step import TrainConfig, loss_and_grads
+    cfg = get_config("olmo-1b")
+    cfg = dataclasses.replace(cfg if real else cfg.reduced(), n_layers=2)
+    params = init_model(cfg, seed=1, device=dev)
+    B, S = (2, 2048) if real else (2, 32)
+    batch = to_device(next(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+        seed=1)).batches()), dev)
+    tc = TrainConfig()
+
+    def run():
+        loss, _, g = loss_and_grads(cfg, tc, params, batch)
+        return loss.item(), g
+
+    before = read_counts()
+    loss_k, g_k = run()
+    after = read_counts()
+    if dev.type == "cuda" and (
+            after["flash_attention_bwd"] - before["flash_attention_bwd"]
+            != cfg.n_layers):
+        fail(f"train_vs_plain: {after} - {before}: not one backward launch "
+             f"a layer")
+    with plain_attention():
+        loss_p, g_p = run()
+    sound = _grad_readings(torch, params, g_k, g_p)
+    res = {"layers": cfg.n_layers, "batch": B, "seq": S,
+           "loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_err": abs(loss_k - loss_p), "loss_limit": TRAIN_LOSS_TOL,
+           "grad_rel_l2": sound, "grad_limit": TRAIN_GRAD_TOL,
+           "planted_faults": {}}
+    if dev.type == "cuda" and not (res["loss_err"] <= TRAIN_LOSS_TOL and
+                                   max(sound.values()) <= TRAIN_GRAD_TOL):
+        fail(f"train step, kernels vs plain attention: loss {loss_k} vs "
+             f"{loss_p}, gradients {sound}")
+    for kind in ("dk_tile", "no_delta"):
+        with backward_fault(torch, kind) as hits:
+            loss_f, g_f = run()
+        reading = max(_grad_readings(torch, params, g_f, g_p).values())
+        res["planted_faults"][kind] = reading
+        if hits[0] != cfg.n_layers:
+            fail(f"planted backward fault {kind} reached {hits[0]} launches")
+        if dev.type == "cuda" and not reading > TRAIN_GRAD_TOL:
+            fail(f"planted backward fault {kind} reads {reading}, not above "
+                 f"the limit {TRAIN_GRAD_TOL}")
+    del params, g_k, g_p, g_f
+    return res
+
+
+def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
+    """Full-size olmo-1b through ``repro_torch.launch.train.train``: 6 steps
+    of batch 4 x 2048 tokens in 2 microbatches, remat none, f32 moments,
+    random weights from a seed, counts set to 0 just before and read just
+    after: the forward and backward kernels once per attention layer a
+    microbatch.  Then ``train_vs_plain``.  ``with_profile`` adds a
+    ``profile`` line of one train step."""
+    import statistics
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.train.step import TrainConfig
+    cfg = get_config("olmo-1b")
+    if not real:
+        cfg = cfg.reduced()
+    steps, batch, seq, n_micro = (6, 4, 2048, 2) if real else (3, 4, 32, 2)
+    tc = TrainConfig(remat="none", n_micro=n_micro, moment_dtype="float32",
+                     total_steps=steps, warmup_steps=1)
+    step_s, last = [], [0.0]
+
+    def on_step(step, metrics):
+        if real:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - last[0])
+        last[0] = now
+
+    if real:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    last[0] = t0 = time.perf_counter()
+    state, losses = train(cfg, steps=steps, batch=batch, seq=seq, tc=tc,
+                          seed=0, device=dev, verbose=False, on_step=on_step)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() if real else None
+    n_attn = transformer.attention_layers(cfg)
+    per = steps * n_micro * n_attn
+    want = {"flash_attention": per, "flash_attention_bwd": per,
+            "attention_delta": per, "decode_attention": 0, "atom_matmul": 0}
+    if real and launches != want:
+        fail(f"train: launch counts {launches} but the path implies {want}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] + 0.1):
+        fail(f"train: losses {losses} not finite or rising")
+    n_params = count_params(state.params)
+    tokens = batch * seq
+    attn_flops = (n_attn * batch * cfg.n_heads * 14 * cfg.head_dim
+                  * causal_pairs(seq))
+    step_flops = 6 * n_params * tokens + attn_flops
+    med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    compare = train_vs_plain(torch, dev, real)
+    emit("train", arch=cfg.name, full_size=real, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, params=n_params,
+         steps=steps, batch=batch, seq=seq, n_micro=n_micro,
+         remat=tc.remat, moment_dtype=tc.moment_dtype, losses=losses,
+         seconds=seconds, step_ms=[x * 1e3 for x in step_s],
+         median_step_ms=med * 1e3, tokens_per_step=tokens,
+         tokens_per_s=tokens / med,
+         step_bound_ms=step_flops / H100.peak_flops * 1e3,
+         step_flops=step_flops, attention_flops=attn_flops,
+         launches=launches, expected_launches=want,
+         peak_memory_bytes=peak, kernels_vs_plain=compare)
+    if with_profile and real:
+        from repro_torch.data.pipeline import DataConfig, SyntheticLM
+        from repro_torch.launch.train import to_device
+        from repro_torch.train.step import make_train_step
+        from repro_torch.models.common import tree_map
+        from repro_torch.optim.optimizers import AdamWConfig, adamw_update
+        _, step_fn = make_train_step(cfg, tc, device=dev)
+        b = to_device(next(SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq,
+            global_batch=batch)).batches()), dev)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=dev), state.params)
+
+        def one_step():
+            step_fn(state, b)
+            torch.cuda.synchronize()
+
+        def optimizer():        # the step's AdamW update alone
+            adamw_update(state.params, grads, state.opt, AdamWConfig())
+            torch.cuda.synchronize()
+
+        out = profile_windows(torch, {"train_step": one_step,
+                                      "optimizer": optimizer})
+        emit("profile", arch=cfg.name, window={
+            "train_step": f"one step: batch {batch} x {seq} in {n_micro} "
+                          f"microbatches, AdamW f32 moments",
+            "optimizer": "its AdamW update alone (f32 gradients)"}, **out)
+        del grads
+    del state
+    if real:
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the atomization path
 # ---------------------------------------------------------------------------
 
@@ -1454,7 +1891,7 @@ def main(argv) -> int:
              flags=" ".join(build.NVCC_FLAGS),
              ptxas={n: build.ptxas_report(n) for n in build.KERNELS})
 
-    k1, k2, k3 = kernels_phase(torch, dev, real)
+    k1, k2, k3, kb = kernels_phase(torch, dev, real)
 
     sizes = (dict(n_requests=8, max_slots=4, max_len=2048, max_new=16) if real
              else dict(n_requests=3, max_slots=2, max_len=32, max_new=4))
@@ -1493,6 +1930,8 @@ def main(argv) -> int:
              else dict(n_requests=3, max_slots=2, max_len=32, max_new=3))
     runs.append(serve_phase(torch, dev, "llava-next-34b", real=real,
                             with_profile=prof, **sizes))
+    # the training path: full-size olmo-1b, 6 steps
+    runs.append(train_phase(torch, dev, real=real, with_profile=prof))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     launches["atom_matmul"] = atoms_phase(torch, dev, real)["atom_matmul"]
 
@@ -1515,7 +1954,10 @@ def main(argv) -> int:
         entry("flash_attention",
               "src/repro/kernels/flash_attention/kernel.py:84", k2),
         entry("atom_matmul",
-              "src/repro/kernels/atom_matmul/kernel.py:57", k3)]}),
+              "src/repro/kernels/atom_matmul/kernel.py:57", k3),
+        entry("flash_attention_bwd",
+              "jax.grad of src/repro/models/attention.py:141 "
+              "blocked_attention (XLA autodiff, no Pallas kernel)", kb)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

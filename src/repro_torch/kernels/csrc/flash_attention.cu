@@ -114,9 +114,10 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src,
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int start,
-                  int n_qblocks, int Hq, int G, int Sq, int Sk, int causal,
-                  int window, Strides st, float sm_scale) {
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int start, int n_qblocks, int Hq,
+                  int G, int Sq, int Sk, int causal, int window, Strides st,
+                  float sm_scale) {
   constexpr int DP = D + 4;
   constexpr int NG = D / 64;   // 64-wide column groups of the output
   extern __shared__ __align__(16) float smem[];
@@ -253,6 +254,10 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qrow = q0 + ty + 16 * i;
     if (qrow < Sq) {
+      // natural-base log-sum-exp of the row's scaled scores (+inf: no key)
+      if (lse != nullptr && tx == 0)
+        lse[(long long)bh * Sq + qrow] =
+            l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
       const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
       for (int g = 0; g < NG; ++g)
@@ -317,7 +322,8 @@ __global__ void __launch_bounds__(TC_THREADS, tc_ctas<D>())
 flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
-                       __nv_bfloat16* __restrict__ o, int start, int num_tiles,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int start, int num_tiles,
                        int n_qblocks, int Hq, int G, int Sq, int Sk,
                        int causal, int window, long long o_b, long long o_s,
                        long long o_h, float scale_log2e) {
@@ -494,6 +500,11 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / (sum == 0.f ? 1.f : sum);
     const int qrow = q0 + warp * 16 + g + 8 * r;
+    // natural-base log-sum-exp of the row's scaled scores (m is in log2
+    // units of them); +inf for a row that saw no key
+    if (lse != nullptr && tq == 0 && qrow < Sq)
+      lse[(long long)bh * Sq + qrow] =
+          sum == 0.f ? INFINITY : (m[r] + log2f(sum)) * 0.6931471805599453f;
     if (qrow < Sq) {
       __nv_bfloat16* orow = ob + (long long)qrow * o_s + 2 * tq;
 #pragma unroll
@@ -506,9 +517,9 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int start, int num_tiles, int n_qblocks, int B, int Hq, int G,
-                int Sq, int Sk, int causal, int window, const Strides& st,
-                cudaStream_t stream) {
+                float* lse, int start, int num_tiles, int n_qblocks, int B,
+                int Hq, int G, int Sq, int Sk, int causal, int window,
+                const Strides& st, cudaStream_t stream) {
   // [B, S, H, D] as 4-D maps {D, H, S, B}: boxes of 64 (D) x 1 head x rows
   const uint64_t esz = 2;
   CUtensorMap map_q, map_k, map_v;
@@ -535,16 +546,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const float scale_log2e = 1.4426950408889634f / sqrtf((float)D);
   kernel<<<num_tiles, TC_THREADS, smem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), start, num_tiles,
-      n_qblocks, Hq, G, Sq, Sk, causal, window, st.o_b, st.o_s, st.o_h,
-      scale_log2e);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), lse, start,
+      num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, window, st.o_b, st.o_s,
+      st.o_h, scale_log2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int start,
-           int num_tiles, int n_qblocks, int Hq, int G, int Sq, int Sk,
-           int causal, int window, const Strides& st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int start, int num_tiles, int n_qblocks, int Hq, int G, int Sq,
+           int Sk, int causal, int window, const Strides& st,
+           cudaStream_t stream) {
   auto kernel = flash_attn_kernel<T, D>;
   constexpr int smem = smem_bytes<D>();   // above 48 KB: dynamic, opted in
   cudaError_t err = cudaFuncSetAttribute(
@@ -552,8 +564,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int start,
   if (err != cudaSuccess) return (int)err;
   kernel<<<num_tiles, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), start, n_qblocks, Hq, G,
-      Sq, Sk, causal, window, st, 1.0f / sqrtf((float)D));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, start, n_qblocks,
+      Hq, G, Sq, Sk, causal, window, st, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -607,13 +619,15 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
 // [B,Sk,Hk,D]; strides in elements, last stride 1.  A query row at position
 // qpos = Sk - Sq + row sees key kpos if kpos <= qpos (causal) and kpos >
 // qpos - window (window > 0: a sliding window of `window` keys).  dtype:
-// 0 = float32, 1 = bfloat16.  Returns the CUDA error code of the launch
-// (0 = success), -1 for a shape the kernel does not take, or -2 if a tensor
-// map cannot be encoded.
+// 0 = float32, 1 = bfloat16.  `lse` (nullptr: none) receives each row's
+// natural-base log-sum-exp of its scaled scores, f32 [B,Hq,Sq] contiguous,
+// +inf for a row with no visible key; only the atom's rows are written.
+// Returns the CUDA error code of the launch (0 = success), -1 for a shape
+// the kernel does not take, or -2 if a tensor map cannot be encoded.
 extern "C" int flash_attention_atom(
-    const void* q, const void* k, const void* v, void* o, int start,
-    int num_tiles, int n_qblocks, int B, int Hq, int G, int Sq, int Sk, int D,
-    int causal, int window, int dtype,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int start, int num_tiles, int n_qblocks, int B, int Hq, int G, int Sq,
+    int Sk, int D, int causal, int window, int dtype,
     long long q_b, long long q_s, long long q_h,
     long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h,
@@ -621,7 +635,8 @@ extern "C" int flash_attention_atom(
   if (num_tiles <= 0) return 0;
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, o, start, num_tiles, n_qblocks
+#define FLASH_ARGS \
+  q, k, v, o, static_cast<float*>(lse), start, num_tiles, n_qblocks
 #define FLASH_TAIL G, Sq, Sk, causal, window, st, s
   if (dtype == 0 && D == 64) return launch<float, 64>(FLASH_ARGS, Hq, FLASH_TAIL);
   if (dtype == 0 && D == 128) return launch<float, 128>(FLASH_ARGS, Hq, FLASH_TAIL);

@@ -3,7 +3,8 @@
 * ``naive_attention``   O(S^2) oracle for tests.
 * ``prefill_attention`` causal attention over a prompt, optionally within a
                         sliding window: the flash-attention kernel wrapper
-                        (``kernels/flash_attention``).
+                        (``kernels/flash_attention``), with its backward
+                        kernel under autograd.
 * ``decode_attention``  one new token against the KV cache with per-row
                         lengths: the decode-attention kernel wrapper
                         (``kernels/decode_attention``).  A sliding-window
@@ -101,7 +102,13 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Sq,Hq,Dh] against k/v [B,Sk,Hkv,Dh]; the causal mask is aligned
     to the end of the keys (chunked prefill when Sq < Sk); ``window > 0``:
-    each query sees only its last ``window`` keys."""
+    each query sees only its last ``window`` keys.  When autograd records
+    (grad enabled and an input requires grad) the call goes through
+    ``FlashAttention``, whose backward is the backward kernel; serving
+    launches the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _flash_ops.FlashAttention.apply(q, k, v, causal, window)
     return _flash_ops.flash_attention(q, k, v, causal=causal, window=window)
 
 

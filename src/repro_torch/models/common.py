@@ -106,14 +106,31 @@ def einsum(spec, *args, out_dtype: Optional[torch.dtype] = None):
     return torch.einsum(spec, *args).to(dt)
 
 
+class _MmF32(torch.autograd.Function):
+    """[N,K] @ [K,M] of low-precision operands with an f32 result, and its
+    gradient: ``torch.mm(..., out_dtype=)`` has no derivative of its own.
+    The backward rounds the f32 cotangent to the operands' dtype once and
+    takes both products in it (f32 accumulation)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
+
+
 def dot_f32(x, w):
     """``x @ w`` with the result kept in f32 (the LM head's logits)."""
     if x.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.device.type == "cuda":
         lead = x.shape[:-1]
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MmF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -130,6 +147,23 @@ def tree_paths(tree: PyTree, prefix: str = "") -> list[tuple[str, Any]]:
     else:
         out.append((prefix, tree))
     return out
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves in ``tree_paths`` order (keys sorted at every level)."""
+    return [x for _, x in tree_paths(tree)]
+
+
+def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
+    """``leaves`` (in ``tree_paths`` order) in the nesting of ``like``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
 
 
 def tree_map(fn, tree: PyTree) -> PyTree:

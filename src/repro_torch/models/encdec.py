@@ -16,6 +16,10 @@ for the decoder's self-attention) and decode attention (twice a decoder
 layer at a decode step).  Whisper places no RoPE; every projection has a
 bias.
 
+Training differentiates ``forward`` (``encode`` and ``decoder_forward``,
+whose attention takes the flash-attention kernel's autograd ``Function``);
+serving runs under ``torch.no_grad`` (``models/registry.serve_prefill``).
+
 Serving: ``encode`` once, ``init_dec_caches`` (self-attention K/V of
 ``max_len`` rows and the cross-attention K/V, computed once from the
 encoder's output), then ``decode_step`` at a scalar position, which writes
@@ -123,7 +127,6 @@ def _xattn_kv(p, enc_out):
 # Encoder
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def encode(params, cfg: ArchConfig, frames) -> torch.Tensor:
     """frames [B, S_src, D] (precomputed embeddings) -> encoder states."""
     x = frames + params["enc_pos"][:frames.shape[1]]
@@ -140,7 +143,6 @@ def encode(params, cfg: ArchConfig, frames) -> torch.Tensor:
 # Decoder: teacher-forced forward and serving
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def decoder_forward(params, cfg: ArchConfig, tokens, enc_out) -> torch.Tensor:
     """Teacher-forced decoder pass -> final-norm hidden states [B,S,D]."""
     x = (embed_tokens(params["embed"], tokens)

@@ -1,17 +1,20 @@
 """Uniform model API over every config of the registry.
 
     init_model(cfg, seed=..., device=...)         -> params
+    train_loss(params, cfg, batch, **opts)        -> (loss, metrics)
     serve_prefill(params, cfg, batch, max_len)    -> (logits, caches)
     serve_decode(params, cfg, token, pos, caches) -> (logits, caches)
 
-``batch`` contents by frontend (``configs.base.ArchConfig.frontend``):
+``batch`` contents by frontend (``configs.base.ArchConfig.frontend``);
+training adds ``"labels"`` [B,S] int (-1: no target):
     none        {"tokens": [B,S] int}
     patch_stub  {"input_embeds": [B,S,D]} (VLM: through ``vlm_proj``), or
                 {"tokens": [B,S] int}
     frame_stub  {"frames": [B,S_src,D], "tokens": [B,St] int}   (enc-dec)
 
 Decoder-only configs go to ``models/transformer.py``, encoder-decoder ones
-to ``models/encdec.py``.  ``train_loss`` is not ported yet (ROADMAP A8).
+to ``models/encdec.py``.  The serving entry points run under
+``torch.no_grad``; ``train_loss`` is differentiable.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from repro_torch.models import encdec, transformer
 
 PyTree = Any
 
+AUX_LOSS_WEIGHTS = {"lb": 0.01, "z": 1e-3}   # Switch-style MoE aux weights
+
 
 def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> PyTree:
     """Random parameters on ``device``; ``device=None`` means the GPU."""
@@ -32,6 +37,37 @@ def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> PyTree:
     return transformer.init_lm(cfg, seed=seed, device=device)
 
 
+def train_loss(params, cfg: ArchConfig, batch, *, remat: str = "none",
+               loss_chunk: int = 512, attn_block: int = 512):
+    """Mean next-token CE plus the weighted MoE aux losses.  Returns (loss,
+    {"ce", "lb_loss", "z_loss"}).  ``attn_block`` has no effect (the
+    kernel's tile is fixed); ``remat`` applies to the decoder-only stack."""
+    if cfg.is_encoder_decoder:
+        h = encdec.forward(params, cfg, batch["frames"], batch["tokens"])
+        lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
+        ce = _encdec_loss(params, cfg, h, batch["labels"])
+    else:
+        h, (lb, zl) = transformer.forward(
+            params, cfg, batch.get("tokens"),
+            input_embeds=batch.get("input_embeds"), remat=remat,
+            attn_block=attn_block)
+        ce = transformer.lm_loss(params, cfg, h, batch["labels"],
+                                 chunk=loss_chunk)
+    loss = ce + AUX_LOSS_WEIGHTS["lb"] * lb + AUX_LOSS_WEIGHTS["z"] * zl
+    return loss, {"ce": ce, "lb_loss": lb, "z_loss": zl}
+
+
+def _encdec_loss(params, cfg: ArchConfig, h, labels):
+    """Masked mean CE through the tied embedding, all positions at once
+    (whisper's vocabulary is small), as the reference's."""
+    logits = encdec.lm_logits(params, cfg, h)            # [B,S,V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+@torch.no_grad()
 def serve_prefill(params, cfg: ArchConfig, batch, *, max_len: int,
                   caches=None, slot: int = 0):
     """Prefill a batch into fresh caches (decoder-only: or into rows
@@ -57,6 +93,7 @@ def serve_prefill(params, cfg: ArchConfig, batch, *, max_len: int,
         caches=caches, slot=slot)
 
 
+@torch.no_grad()
 def serve_decode(params, cfg: ArchConfig, token, pos_scalar, caches):
     if cfg.is_encoder_decoder:
         return encdec.decode_step(params, cfg, token, pos_scalar, caches)

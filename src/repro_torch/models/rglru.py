@@ -63,14 +63,16 @@ def _gates(params, u):
 
 def linear_scan(a, b):
     """h_t = a_t h_{t-1} + b_t along axis 1 with h_{-1} = 0: a doubling
-    (Hillis-Steele) scan of the associative pairs (a, b), log2(S) passes."""
-    a, h = a.clone(), b.clone()
+    (Hillis-Steele) scan of the associative pairs (a, b), log2(S) passes.
+    Each pass builds new tensors (no in-place writes), so autograd can take
+    its backward."""
+    h = b
     S, shift = a.shape[1], 1
     while shift < S:
-        h_new = torch.addcmul(h[:, shift:], a[:, shift:], h[:, :-shift])
-        a_new = a[:, shift:] * a[:, :-shift]
-        h[:, shift:] = h_new
-        a[:, shift:] = a_new
+        h = torch.cat([h[:, :shift],
+                       torch.addcmul(h[:, shift:], a[:, shift:],
+                                     h[:, :-shift])], dim=1)
+        a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]], dim=1)
         shift *= 2
     return h
 

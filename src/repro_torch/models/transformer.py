@@ -11,9 +11,17 @@ loop over ``g`` that indexes the stacked leaves.
 
 Entry points:
     init_lm(cfg, seed=..., device=...) -> params
-    forward(params, cfg, tokens)       -> final hidden states [B,S,D]
-    lm_logits                          -> f32 vocab projection
+    forward(params, cfg, tokens)       -> (final hidden states [B,S,D],
+                                           MoE aux losses (lb, z))
+    lm_logits / lm_loss                -> f32 vocab projection / chunked
+                                          next-token cross-entropy
     prefill(...) / decode_step(...)    -> serving paths with caches / states
+
+``forward`` and ``lm_loss`` are differentiable (the training path): the
+attention layers take the flash-attention kernel's autograd ``Function``,
+and ``remat`` recomputes a group of the layer pattern in the backward
+(``full``) or keeps only its matrix products (``dots``).  The serving paths
+run under ``torch.no_grad``.
 
 Serving caches are updated IN PLACE: ``prefill`` and ``decode_step`` write
 into the cache tensors they are given and return the same objects.  A
@@ -28,9 +36,11 @@ their own module, ``models/encdec.py``; ``models/registry.py`` picks one.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -150,14 +160,21 @@ def _layer(tree: PyTree, g: int) -> PyTree:
 # Blocks: prompt-length (forward / prefill) and one-token (decode)
 # ---------------------------------------------------------------------------
 
+def _no_aux(x):
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    return z, z
+
+
 def _ffn(bp, x, cfg: ArchConfig, kind: str):
     """The block's second half: norm, then the MLP or (attention blocks of
-    MoE configs) the experts, residual added.  The MoE's auxiliary losses
-    are a training signal, which serving drops."""
+    MoE configs) the experts, residual added.  Returns (x, (lb, z)): the
+    MoE's auxiliary losses (zeros without experts), a training signal that
+    serving drops."""
     h = apply_norm(bp["ln2"], x, cfg.norm)
     if kind == "attn" and cfg.moe is not None:
-        return x + moe_lib.apply_moe(bp["moe"], h, cfg.moe)[0]
-    return x + apply_mlp(bp["mlp"], h, cfg.activation)
+        out, aux = moe_lib.apply_moe(bp["moe"], h, cfg.moe)
+        return x + out, aux
+    return x + apply_mlp(bp["mlp"], h, cfg.activation), _no_aux(x)
 
 
 def _store(cache: dict, new: dict) -> None:
@@ -168,10 +185,11 @@ def _store(cache: dict, new: dict) -> None:
 
 def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
                  cache=None):
-    """Residual block application on [B,S,D] activations.  With ``cache``
-    (this block's cache / state view) the prompt's K/V, or the recurrent
-    state at its end, are also written into it, in place; a recurrent block
-    starts from the initial state, never from what the cache held."""
+    """Residual block application on [B,S,D] activations -> (x, MoE aux
+    losses (lb, z)).  With ``cache`` (this block's cache / state view) the
+    prompt's K/V, or the recurrent state at its end, are also written into
+    it, in place; a recurrent block starts from the initial state, never
+    from what the cache held."""
     window = _window_for(cfg, kind)
     h = apply_norm(bp["ln1"], x, cfg.norm)
     if kind == "attn":
@@ -201,7 +219,7 @@ def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
             o, (st, tail) = ssm_lib.apply_mlstm_block(bp["mlstm"], h,
                                                       return_state=True)
             _store(cache, {**st, "conv": tail})
-        return x + o
+        return x + o, _no_aux(x)
     if kind == "slstm":
         if cache is None:
             o = ssm_lib.apply_slstm_block(bp["slstm"], h)
@@ -209,7 +227,7 @@ def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
             o, st = ssm_lib.apply_slstm_block(bp["slstm"], h,
                                               return_state=True)
             _store(cache, st)
-        return x + o
+        return x + o, _no_aux(x)
     raise ValueError(kind)
 
 
@@ -225,12 +243,12 @@ def _decode_block(bp, x, cfg, kind, pos, lens, rope, cache):
                                           window=window)
         o = attn_lib.decode_attention(q[:, 0], kc, vc, lens, window=window)
         x = x + attn_lib.out_project(bp["attn"], o[:, None])
-        return _ffn(bp, x, cfg, kind)
+        return _ffn(bp, x, cfg, kind)[0]
     if kind == "rec":
         o, hN, conv = rglru_lib.decode_rglru_block(bp["rec"], h, cache["h"],
                                                    cache["conv"])
         _store(cache, {"h": hN, "conv": conv})
-        return _ffn(bp, x + o, cfg, kind)
+        return _ffn(bp, x + o, cfg, kind)[0]
     if kind == "mlstm":
         st = {n: cache[n] for n in ("C", "n", "m")}
         o, st, conv = ssm_lib.decode_mlstm_block(bp["mlstm"], h, st,
@@ -282,22 +300,109 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-@torch.no_grad()
-def forward(params, cfg: ArchConfig, tokens=None, *, input_embeds=None):
-    """Token (or embedding) inputs -> final-norm hidden states [B,S,D]."""
+REMAT = ("none", "full", "dots")
+# matrix products whose outputs ``remat="dots"`` keeps (the counterpart of
+# jax's ``checkpoint_dots_with_no_batch_dims``): everything else of a group
+# is recomputed in the backward
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the activation-checkpoint policy ``remat``."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
+
+
+def _unstack(tree, n: int) -> list:
+    """A stacked tree [G, ...] as G trees of its slices.  ``unbind`` makes
+    the backward stack the G gradients once, where indexing would add a
+    whole-stack gradient a layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[g] for k, p in parts.items()} for g in range(n)]
+    return list(tree.unbind(0))
+
+
+def forward(params, cfg: ArchConfig, tokens=None, *, input_embeds=None,
+            remat: str = "none", attn_block: int = 512):
+    """Token (or embedding) inputs -> (final-norm hidden states [B,S,D],
+    (lb, z) MoE aux losses summed over layers, f32).  ``remat`` applies to
+    each group of the layer pattern, as the reference's scan body;
+    ``attn_block`` is accepted for the reference's signature and has no
+    effect (the kernel's q tile is ``flash_attention.ops.BLOCK_Q``)."""
+    del attn_block
     x = embed_inputs(params, cfg, tokens, input_embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     rope = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    for kind, bp, _ in _layers(params, cfg):
-        x = _apply_block(bp, x, cfg, kind, positions, rope)
-    return apply_norm(params["final_norm"], x, cfg.norm)
+    pat = layer_pattern(cfg)
+
+    def group(x, gp):
+        lb, zl = _no_aux(x)
+        for pos, kind in enumerate(pat):
+            x, (a_lb, a_zl) = _apply_block(gp[str(pos)], x, cfg, kind,
+                                           positions, rope)
+            lb, zl = lb + a_lb, zl + a_zl
+        return x, lb, zl
+
+    body = _remat(group, remat)
+    lb, zl = _no_aux(x)
+    G = _n_groups(params)
+    for gp in (_unstack(params["blocks"], G) if G else ()):
+        x, a_lb, a_zl = body(x, gp)
+        lb, zl = lb + a_lb, zl + a_zl
+    for i in sorted(params.get("rem", {})):
+        x, (a_lb, a_zl) = _apply_block(params["rem"][i], x, cfg, pat[int(i)],
+                                       positions, rope)
+        lb, zl = lb + a_lb, zl + a_zl
+    return apply_norm(params["final_norm"], x, cfg.norm), (lb, zl)
 
 
 def lm_logits(params, cfg: ArchConfig, h):
     head = params.get("head")
     emb = params["embed"] if head is None else None
     return apply_head(head, h, emb, cfg.logit_softcap)
+
+
+def _chunk_loss(params, cfg, hx, lx, mx):
+    """(sum of masked NLL, mask count) of one chunk: [B,c,D] -> f32."""
+    logits = lm_logits(params, cfg, hx)                  # [B,c,V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx.clamp_min(0)[..., None])[..., 0]
+    return ((lse - gold) * mx).sum(), mx.sum()
+
+
+def lm_loss(params, cfg: ArchConfig, h, labels, *, chunk: int = 512,
+            mask=None):
+    """Mean next-token cross-entropy over the labels >= 0 (or ``mask``),
+    with the vocab projection taken ``chunk`` positions at a time.  Each
+    chunk is checkpointed, so its [B,chunk,V] f32 logits are recomputed in
+    the backward rather than kept for every chunk."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        lx = labels[:, c0:c0 + chunk]
+        mx = (lx >= 0) if mask is None else mask[:, c0:c0 + chunk]
+        s, c = ckpt.checkpoint(_chunk_loss, params, cfg, h[:, c0:c0 + chunk],
+                               lx, mx.to(torch.float32), use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / cnt.clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +512,7 @@ def prefill(params, cfg: ArchConfig, tokens, *, input_embeds=None,
         slot = 0
     for kind, bp, cache in _layers(params, cfg, caches,
                                    rows=slice(slot, slot + B)):
-        x = _apply_block(bp, x, cfg, kind, positions, rope, cache)
+        x = _apply_block(bp, x, cfg, kind, positions, rope, cache)[0]
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = lm_logits(params, cfg, x[:, -1:])[:, 0]
     return logits, caches

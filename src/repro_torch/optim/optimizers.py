@@ -1,0 +1,166 @@
+"""Optimizers: AdamW with configurable moment dtype (fp32 / bf16 / int8).
+
+The int8 mode stores both Adam moments block-quantized: blocks of
+``QBLOCK`` = 128 values along the last dimension, each with its absmax scale
+in f32, cutting optimizer memory from 8 to ~2 bytes a parameter.  The second
+moment is quantized in the sqrt domain, so its relative error stays bounded
+and small values survive.
+
+Parameter trees are nested dicts of tensors.  The update is functional, as
+the reference's: it returns new parameters and a new state, leaf by leaf in
+f32.  Weight decay applies to every leaf of two or more dimensions as
+stored, so the stacked ``[G, D]`` norm scales of a layer stack are decayed
+too, as in the reference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+
+PyTree = Any
+QBLOCK = 128     # values a quantization block holds, along the last dim
+
+
+class QTensor:
+    """Block-quantized int8 tensor and its per-block f32 scales.
+
+    ``q`` has the parameter's shape with the last dim padded to a multiple
+    of ``QBLOCK``; ``scale`` drops the last dim to its number of blocks;
+    ``shape`` is the original shape."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, shape: tuple):
+        self.q = q            # int8 [..., last_padded]
+        self.scale = scale    # f32  [..., n_blocks]
+        self.shape = tuple(shape)
+
+
+def quantize(x: torch.Tensor) -> QTensor:
+    shape = tuple(x.shape) if x.ndim else (1,)
+    x2 = x.reshape(shape).to(torch.float32)
+    last = shape[-1]
+    pad = (-last) % QBLOCK
+    if pad:
+        x2 = F.pad(x2, (0, pad))
+    blocks = x2.reshape(shape[:-1] + ((last + pad) // QBLOCK, QBLOCK))
+    scale = (blocks.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(blocks / scale[..., None]), -127, 127)
+    q = q.reshape(shape[:-1] + (last + pad,)).to(torch.int8)
+    return QTensor(q, scale, tuple(x.shape))
+
+
+def dequantize(t: QTensor) -> torch.Tensor:
+    shape = t.shape if t.shape else (1,)
+    last_p = t.q.shape[-1]
+    blocks = t.q.reshape(t.q.shape[:-1] + (last_p // QBLOCK, QBLOCK))
+    out = blocks.to(torch.float32) * t.scale[..., None]
+    out = out.reshape(t.q.shape[:-1] + (last_p,))[..., :shape[-1]]
+    return out.reshape(t.shape)
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor        # int32 scalar
+    mu: PyTree
+    nu: PyTree
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"     # float32 | bfloat16 | int8
+
+
+def _encode_moment(x, dtype: str, positive: bool = False):
+    if dtype == "int8":
+        return quantize(torch.sqrt(x) if positive else x)
+    if dtype == "bfloat16":
+        return x.to(torch.bfloat16)
+    return x.to(torch.float32)
+
+
+def _decode_moment(x, dtype: str, positive: bool = False):
+    if dtype == "int8":
+        d = dequantize(x)
+        return torch.square(d) if positive else d
+    return x.to(torch.float32)
+
+
+def adamw_init(params: PyTree, cfg: AdamWConfig) -> OptState:
+    def zeros():
+        return tree_map(lambda p: _encode_moment(
+            torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+            cfg.moment_dtype), params)
+
+    dev = tree_leaves(params)[0].device
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                    mu=zeros(), nu=zeros())
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, in f32, leaves in
+    the order of their sorted paths (the reference's tree order)."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    return torch.sqrt(sum(sq[1:], sq[0]))
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def adamw_update(params: PyTree, grads: PyTree, state: OptState,
+                 cfg: AdamWConfig, lr: Optional[torch.Tensor] = None
+                 ) -> tuple[PyTree, OptState, dict]:
+    """One AdamW step, leaf by leaf in f32; moments round-trip through the
+    configured encoding.  ``lr`` (f32 scalar tensor) defaults to
+    ``cfg.lr``.  Returns (new params, new state, {"grad_norm"})."""
+    step = state.step + 1
+    lr = _f32(cfg.lr, step) if lr is None else lr
+    gnorm = global_norm(grads)
+    clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0) if cfg.grad_clip > 0 else 1.0)
+    stepf = step.to(torch.float32)
+    c1 = 1.0 - torch.pow(_f32(cfg.b1, step), stepf)
+    c2 = 1.0 - torch.pow(_f32(cfg.b2, step), stepf)
+
+    def leaf(p, g, mu, nu):
+        g = g.to(torch.float32) * clip
+        mu = _decode_moment(mu, cfg.moment_dtype)
+        nu = _decode_moment(nu, cfg.moment_dtype, positive=True)
+        mu = cfg.b1 * mu + (1 - cfg.b1) * g
+        nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
+        upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+        if p.ndim >= 2:                       # decay matrices only
+            upd = upd + cfg.weight_decay * p.to(torch.float32)
+        new_p = (p.to(torch.float32) - lr * upd).to(p.dtype)
+        return (new_p, _encode_moment(mu, cfg.moment_dtype),
+                _encode_moment(nu, cfg.moment_dtype, positive=True))
+
+    trip = [leaf(p, g, m, n) for p, g, m, n in
+            zip(tree_leaves(params), tree_leaves(grads),
+                tree_leaves(state.mu), tree_leaves(state.nu))]
+    new_p = tree_unflatten(params, [t[0] for t in trip])
+    new_mu = tree_unflatten(params, [t[1] for t in trip])
+    new_nu = tree_unflatten(params, [t[2] for t in trip])
+    return new_p, OptState(step, new_mu, new_nu), {"grad_norm": gnorm}
+
+
+def make_optimizer(moment_dtype: str = "float32", **kw):
+    cfg = AdamWConfig(moment_dtype=moment_dtype, **kw)
+
+    def init(params):
+        return adamw_init(params, cfg)
+
+    def update(params, grads, state, lr=None):
+        return adamw_update(params, grads, state, cfg, lr)
+
+    return cfg, init, update

@@ -1,0 +1,142 @@
+"""train_step factory: remat, microbatch accumulation in f32, optional int8
+gradient compression with error feedback.
+
+``make_train_step(cfg, tc, device=...)`` returns ``(init_state,
+train_step)``; ``train_step(state, batch) -> (state, metrics)`` builds a new
+state (the parameters and moments of the old one are not written).  The
+gradient of each microbatch is taken with ``torch.autograd.grad`` (so no
+``.grad`` of a bf16 parameter accumulates in bf16); with ``n_micro > 1``
+they are summed in f32 and averaged.  Gradient compression quantizes the
+gradients to int8 blocks before the (conceptual) data-axis reduction and
+keeps the quantization error as feedback added to the next step.
+
+On the card the attention layers' forward and backward are the
+flash-attention kernels (``kernels/flash_attention``); the rest is autograd
+of PyTorch operations, as the reference's is autodiff of jnp.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.registry import init_model, train_loss
+from repro_torch.optim.optimizers import (AdamWConfig, OptState, adamw_init,
+                                          adamw_update, dequantize, quantize)
+from repro_torch.optim.schedules import cosine_schedule
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    remat: str = "none"              # none | dots | full
+    n_micro: int = 1
+    loss_chunk: int = 512
+    # accepted for the reference's signature; no effect: the attention
+    # kernels' tile is fixed (flash_attention.ops.BLOCK_Q)
+    attn_block: int = 512
+    grad_compress: bool = False      # int8 + error feedback
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    moment_dtype: str = "float32"
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+class TrainState(NamedTuple):
+    params: PyTree
+    opt: OptState
+    err_fb: Optional[PyTree]         # error-feedback residual (compression)
+
+
+def _split_micro(batch: dict, n: int) -> list[dict]:
+    """[B, ...] -> n microbatches of [B//n, ...]."""
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k} of {v.shape[0]} rows does not split "
+                             f"into {n} microbatches")
+    return [{k: v.chunk(n, dim=0)[i] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def _compress_grads(grads: PyTree, err: PyTree) -> tuple[PyTree, PyTree]:
+    """int8 block quantization with error feedback.  Returns (decoded grads
+    as they would arrive after the all-reduce, new residual)."""
+    dec, new_err = [], []
+    for g, e in zip(tree_leaves(grads), tree_leaves(err)):
+        g32 = g.to(torch.float32) + e
+        dec.append(dequantize(quantize(g32)))
+        new_err.append(g32 - dec[-1])
+    return tree_unflatten(grads, dec), tree_unflatten(grads, new_err)
+
+
+def loss_and_grads(cfg: ArchConfig, tc: TrainConfig, params: PyTree,
+                   batch: dict):
+    """(loss, metrics, grads) of one (micro)batch; grads in the params'
+    dtypes, nested as ``params``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        loss, metrics = train_loss(live, cfg, batch, remat=tc.remat,
+                                   loss_chunk=tc.loss_chunk,
+                                   attn_block=tc.attn_block)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+    g = [torch.zeros_like(p) if x is None else x for p, x in zip(leaves, g)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(params, g))
+
+
+def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig(), *,
+                    device=None):
+    """(init_state, train_step) for ``cfg``.  ``init_state(seed=0,
+    params=None)`` draws parameters on ``device`` (None: the GPU) unless
+    given them (converted from the reference, say)."""
+    opt_cfg = AdamWConfig(lr=tc.lr, weight_decay=tc.weight_decay,
+                          grad_clip=tc.grad_clip,
+                          moment_dtype=tc.moment_dtype)
+
+    def init_state(seed: int = 0, params: PyTree = None) -> TrainState:
+        if params is None:
+            params = init_model(cfg, seed=seed, device=device)
+        opt = adamw_init(params, opt_cfg)
+        err = (tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+               if tc.grad_compress else None)
+        return TrainState(params, opt, err)
+
+    def train_step(state: TrainState, batch: dict
+                   ) -> tuple[TrainState, dict]:
+        params = state.params
+        if tc.n_micro > 1:
+            gsum, lsum = None, 0.0
+            for mb in _split_micro(batch, tc.n_micro):
+                loss, _, g = loss_and_grads(cfg, tc, params, mb)
+                g = [x.to(torch.float32) for x in tree_leaves(g)]
+                gsum = g if gsum is None else [a.add_(b) for a, b in
+                                               zip(gsum, g)]
+                lsum = lsum + loss
+                del g
+            grads = tree_unflatten(params, [x / tc.n_micro for x in gsum])
+            loss = lsum / tc.n_micro
+            metrics = {"ce": loss}
+        else:
+            loss, metrics, grads = loss_and_grads(cfg, tc, params, batch)
+
+        err_fb = state.err_fb
+        if tc.grad_compress:
+            grads, err_fb = _compress_grads(grads, err_fb)
+
+        lr = cosine_schedule(state.opt.step, tc.lr, tc.total_steps,
+                             tc.warmup_steps)
+        new_params, new_opt, opt_metrics = adamw_update(
+            params, grads, state.opt, opt_cfg, lr)
+        out = {"loss": loss, "lr": lr, **metrics, **opt_metrics}
+        return TrainState(new_params, new_opt, err_fb), out
+
+    return init_state, train_step
+

@@ -24,7 +24,10 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.decode_compare import dropped_split_err, headline_limit
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_delta_ref, attention_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_atom_ref as flash_bwd_atom_ref)
 from repro_torch.models import transformer
 from repro_torch.models.common import tree_map
 from repro_torch.models.registry import init_model
@@ -625,3 +628,92 @@ def test_llava_on_gpu_matches_cpu(cuda, dtype):
     assert (lg.cpu() - lc).abs().max().item() <= tol
     assert flash_ops.launches == before[0] + cfg.n_layers
     assert decode_ops.launches == before[1] + 2 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward and the training path
+# ---------------------------------------------------------------------------
+
+def _bwd_row_err(got, want):
+    """Max over rows of a gradient [B,S,H,D] of the row's max abs error over
+    its largest |want| (at least 2^-8 of the tensor's largest): the limit's
+    reasoning is ``chip_smoke.BWD_REL_TOL``'s."""
+    d = (got.float() - want.float()).abs().amax(dim=(2, 3))
+    scale = want.float().abs().amax(dim=(2, 3))
+    return (d / scale.clamp_min(2.0 ** -8 * scale.max().item())).max().item()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_flash_bwd_kernel_random_shapes(cuda, seed):
+    """bf16 dQ, dK, dV against the plain version of the backward atoms in
+    f32 on the same inputs (the same bf16 output and lse), row by row
+    within 2^-5; atoms in a random order bit-equal to one.  (Against
+    autograd of the plain forward, a row whose gradient nearly cancels,
+    dP close to delta, also reads delta's rounding through the bf16 output:
+    ``chip_smoke.py`` holds fixed shapes to that.)"""
+    rng = np.random.default_rng(100 + seed)
+    D = int(rng.choice([64, 128]))
+    Hk = int(rng.choice([1, 2, 4]))
+    Hq = Hk * int(rng.choice([1, 2, 4]))
+    Sk = int(rng.integers(1, 400))
+    Sq = Sk if seed % 3 else int(rng.integers(1, 400))
+    causal = bool(seed % 2)
+    window = int(rng.integers(1, Sk + 1)) if seed in (1, 4) else 0
+    q, do = (_randn(rng, (2, Sq, Hq, D), torch.bfloat16, cuda)
+             for _ in range(2))
+    k, v = (_randn(rng, (2, Sk, Hk, D), torch.bfloat16, cuda)
+            for _ in range(2))
+    o, lse = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    want = [torch.zeros(t.shape, device=cuda) for t in (q, k, v)]
+    flash_bwd_atom_ref(q.float(), k.float(), v.float(), do.float(), lse,
+                       attention_delta_ref(o, do), *want, start=0,
+                       num_tiles=flash_ops.bwd_tile_space(q, k),
+                       causal=causal, window=window)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                        window=window)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _bwd_row_err(g, w) <= 2.0 ** -5
+    n = flash_ops.bwd_tile_space(q, k)
+    order = tuple(int(i) for i in rng.permutation(min(n, 7)))
+    again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                          window=window, n_atoms=len(order),
+                                          order=order)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
+                                     (torch.bfloat16, 256)])
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda, dtype, D):
+    q = torch.zeros(1, 64, 2, D, dtype=dtype, device=cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP B4"):
+        flash_ops.flash_attention_bwd(q, q, q, q, q, lse)
+
+
+def test_train_step_on_gpu_matches_cpu(cuda):
+    """Reduced olmo-1b at head_dim 64 in bf16: one train step on the card
+    (the forward and backward kernels, one launch each a layer and
+    microbatch) against the same step on the CPU (plain versions)."""
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(), d_model=256,
+                              n_heads=4, n_kv_heads=4, d_head=64,
+                              dtype="bfloat16")
+    tc = TrainConfig(n_micro=2, lr=1e-3)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(2, 256, (4, 96))),
+             "labels": torch.from_numpy(rng.integers(0, 256, (4, 96)))}
+    init_c, step_c = make_train_step(cfg, tc, device="cpu")
+    init_g, step_g = make_train_step(cfg, tc, device=cuda)
+    before = flash_ops.launches, flash_ops.bwd_launches
+    _, mc = step_c(init_c(params=cpu), batch)
+    _, mg = step_g(init_g(params=gpu),
+                   {k: v.to(cuda) for k, v in batch.items()})
+    assert (flash_ops.launches - before[0],
+            flash_ops.bwd_launches - before[1]) == (2 * cfg.n_layers,
+                                                    2 * cfg.n_layers)
+    assert abs(mg["loss"].item() - mc["loss"].item()) <= 2e-2
+    assert abs(mg["grad_norm"].item() / mc["grad_norm"].item() - 1) <= 5e-2

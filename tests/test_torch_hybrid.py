@@ -236,7 +236,7 @@ def test_forward_prefill_and_three_decode_steps(arch, per_slot):
     jcfg, jparams, tcfg, tparams = _pair(arch, jitter=0.05)
     B, S, L = 2, 45, 60
     toks, jtoks = _tokens(20, (B, S))
-    h = transformer.forward(tparams, tcfg, toks)
+    h = transformer.forward(tparams, tcfg, toks)[0]
     jh, _ = jax_tf.forward(jparams, jcfg, jtoks)
     np.testing.assert_allclose(as_np(h), as_np(jh), **ATTN)
     logits, caches = transformer.prefill(tparams, tcfg, toks, max_len=L)
@@ -292,7 +292,7 @@ def test_prefill_then_decode_equals_forward(arch):
     _, _, tcfg, tparams = _pair(arch)
     toks, _ = _tokens(23, (2, 40))
     full = transformer.lm_logits(tparams, tcfg,
-                                 transformer.forward(tparams, tcfg, toks))
+                                 transformer.forward(tparams, tcfg, toks)[0])
     logits, caches = transformer.prefill(tparams, tcfg, toks[:, :20],
                                          max_len=48)
     np.testing.assert_allclose(as_np(logits), as_np(full[:, 19]), **ATTN)

@@ -23,7 +23,8 @@ IMPORT = re.compile(
 def test_port_has_files():
     assert len(FILES) > 20
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) == [
-        "atom_matmul.cu", "decode_attention.cu", "flash_attention.cu"]
+        "atom_matmul.cu", "decode_attention.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -115,6 +116,8 @@ def test_import_leaves_jax_and_triton_out():
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.atom_matmul.ops\n"
         "import repro_torch.roofline.analysis, repro_torch.launch.atoms\n"
+        "import repro_torch.launch.train, repro_torch.train.step\n"
+        "import repro_torch.optim, repro_torch.data\n"
         "import torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton')]\n"

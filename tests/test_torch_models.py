@@ -357,7 +357,7 @@ def _tokens(seed, shape, vocab=256):
 def test_forward_hidden_states(arch):
     jcfg, jparams, tcfg, tparams = make_pair(arch, jitter=0.05)
     toks, jtoks = _tokens(20, (2, 24))
-    h = transformer.forward(tparams, tcfg, toks)
+    h = transformer.forward(tparams, tcfg, toks)[0]
     jh, _ = jax_tf.forward(jparams, jcfg, jtoks)
     assert tuple(h.shape) == (2, 24, 64)
     np.testing.assert_allclose(_np(h), _np(jh), **TOL)
@@ -430,7 +430,7 @@ def test_prefill_then_decode_equals_forward(arch):
     _, _, tcfg, tparams = make_pair(arch)
     toks, _ = _tokens(60, (2, 16))
     full = transformer.lm_logits(tparams, tcfg,
-                                 transformer.forward(tparams, tcfg, toks))
+                                 transformer.forward(tparams, tcfg, toks)[0])
     logits, caches = transformer.prefill(tparams, tcfg, toks[:, :10], max_len=16)
     np.testing.assert_allclose(_np(logits), _np(full[:, 9]), **TOL)
     for t in range(10, 16):

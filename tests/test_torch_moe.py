@@ -123,7 +123,7 @@ def test_forward_prefill_and_three_decode_steps(arch, per_slot):
     jcfg, jparams, tcfg, tparams = _pair(arch)
     B, S, L = 2, 13, 20
     toks, jtoks = _tokens(10, (B, S))
-    h = transformer.forward(tparams, tcfg, toks)
+    h = transformer.forward(tparams, tcfg, toks)[0]
     jh, _ = jax_tf.forward(jparams, jcfg, jtoks)
     np.testing.assert_allclose(as_np(h), as_np(jh), **MODEL)
     logits, caches = transformer.prefill(tparams, tcfg, toks, max_len=L)

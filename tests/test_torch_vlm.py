@@ -77,7 +77,7 @@ def test_embed_inputs_through_the_projector(dtype):
 def test_forward_through_input_embeds(dtype):
     jcfg, jparams, tcfg, tparams = make_pair(ARCH, dtype=dtype, jitter=0.05)
     x, jx = normal_pair(np.random.default_rng(3), (2, 21, 64), dtype)
-    h = transformer.forward(tparams, tcfg, input_embeds=x)
+    h = transformer.forward(tparams, tcfg, input_embeds=x)[0]
     jh, _ = jax_tf.forward(jparams, jcfg, input_embeds=jx)
     tol = TOL if dtype == "float32" else TOL_BF16
     assert tuple(h.shape) == (2, 21, 64)
@@ -143,7 +143,7 @@ def test_prefill_then_decode_equals_forward_on_embeddings():
     _, _, tcfg, tparams = make_pair(ARCH, jitter=0.05)
     x, _ = normal_pair(np.random.default_rng(8), (2, 12, 64))
     full = transformer.lm_logits(
-        tparams, tcfg, transformer.forward(tparams, tcfg, input_embeds=x))
+        tparams, tcfg, transformer.forward(tparams, tcfg, input_embeds=x)[0])
     logits, caches = transformer.prefill(tparams, tcfg, None,
                                          input_embeds=x[:, :8], max_len=12)
     np.testing.assert_allclose(as_np(logits), as_np(full[:, 7]), **TOL)
