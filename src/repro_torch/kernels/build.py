@@ -9,7 +9,8 @@ keyed by a hash of the source, the shared headers and the flags.  ``build_all`` 
 compiler's output; nothing here falls back to another implementation.  The
 compiler's output of a successful build is kept beside the library
 (``.log``): ``ptxas_report`` reads each kernel's registers, spills and
-``ptxas`` warnings from it (C7508: ``setmaxnreg`` ignored).
+``ptxas`` warnings and performance notes from it (C7508: ``setmaxnreg``
+ignored; C7512: ``wgmma`` serialized for want of registers).
 """
 from __future__ import annotations
 
@@ -159,6 +160,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 
@@ -181,18 +183,23 @@ def _kernel_name(mangled: str) -> str:
 def ptxas_report(name: str) -> dict:
     """What ``ptxas -v`` said of the built ``csrc/<name>.cu``: for each
     kernel (mangled name shortened to its readable part) its registers and
-    bytes of spill stores and loads, and every warning line."""
+    bytes of spill stores and loads, and every warning line and every
+    "Potential Performance Loss" note (C7512: wgmma serialized)."""
     log = library_path(name).with_suffix(".log").read_text()
-    kernels, cur = {}, None
+    kernels, cur, entry = {}, None, None
     for line in log.splitlines():
         if m := _ENTRY.search(line):
-            cur = _kernel_name(m.group(1))
+            entry = m.group(1)
+            cur = _kernel_name(entry)
             kernels[cur] = {}
+        elif m := _PROPS.search(line):
+            if m.group(1) != entry:      # a called function's, not a kernel's
+                cur = None
         elif cur and (m := _SPILL.search(line)):
             kernels[cur]["spill_stores"] = int(m.group(1))
             kernels[cur]["spill_loads"] = int(m.group(2))
         elif cur and (m := _REGS.search(line)):
             kernels[cur]["registers"] = int(m.group(1))
     warnings = [ln.strip() for ln in log.splitlines()
-                if "warning" in ln.lower()]
+                if "warning" in ln.lower() or "Performance Loss" in ln]
     return {"kernels": kernels, "warnings": warnings}

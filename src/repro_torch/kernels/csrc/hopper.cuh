@@ -42,15 +42,23 @@ __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+// Each barrier, load and descriptor function also takes a 32-bit shared
+// address instead of a pointer: kernels short of registers keep those.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
+               :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
 }
 
 // one arrival that also expects `bytes` of TMA transactions in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  mbar_expect_tx(smem_u32(bar), bytes);
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
@@ -65,17 +73,24 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
 
 // A wait that has not ended after this many clocks (about 10 s) is a fault
 // in a pipeline's protocol: it traps, so the launch fails instead of hanging
-// the card.
+// the card.  The trap is a call: a trap inlined into a kernel that raises its
+// consumers' registers with setmaxnreg holds them to the launch-time count
+// in ptxas (the flash backward's consumers spilled 596 bytes at head_dim 128
+// with it inlined, none with this call).
 constexpr long long MBAR_TIMEOUT_CLOCKS = 20000000000LL;
+
+__device__ __noinline__ void mbar_fault() { __trap(); }
 
 // wait until the barrier's current phase parity differs from `parity`, i.e.
 // until the phase numbered `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   if (mbar_try_wait(addr, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > MBAR_TIMEOUT_CLOCKS) __trap();
+    if (clock64() - t0 > MBAR_TIMEOUT_CLOCKS) mbar_fault();
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // ---------------------------------------------------------------------------
@@ -106,15 +121,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)),
+      :: "r"(dst), "l"((uint64_t)map), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  tma_load_4d(smem_u32(dst), map, smem_u32(bar), c0, c1, c2, c3);
 }
 
 // ---------------------------------------------------------------------------
@@ -172,13 +192,17 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // descriptor of a 128-byte-swizzled operand starting at `p` (16-byte
 // aligned; its 8-row swizzle atoms 1024-byte aligned)
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
-  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
   d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
   d |= 1ull << 62;   // 128-byte swizzle
   return d;
+}
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return wgmma_desc(smem_u32(p), lbo, sbo);
 }
 
 // orders this thread's register and shared-memory writes before the wgmma

@@ -11,10 +11,11 @@ only for tensors that lie on the CPU.
 
 The forward can also write each row's log-sum-exp (``lse``).  The backward
 (``csrc/flash_attention_bwd.cu``) takes it: a ``delta`` pass, then atoms of
-its own tile space, dQ tiles ``(B*Hq) x ceil(Sq/64)`` followed by dK/dV
-tiles ``(B*Hk) x ceil(Sk/64)``, each owned by one thread block.
-``FlashAttention`` joins the two for autograd.  The backward kernel takes
-bfloat16 at head_dim 64 and 128; any other CUDA operand raises (ROADMAP B4).
+its own tile space, dQ tiles ``(B*Hq) x ceil(Sq/BWD_BLOCK_Q)`` followed by
+dK/dV tiles ``(B*Hk) x ceil(Sk/BWD_BLOCK_K)``, each owned by one thread
+block, numbered as ``bwd_tile`` says.  ``FlashAttention`` joins the two for
+autograd.  The backward kernel takes bfloat16 at head_dim 64 and 128; any
+other CUDA operand raises (ROADMAP B4).
 """
 from __future__ import annotations
 
@@ -25,11 +26,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.atoms import schedule
+from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.ref import (
     attention_delta_ref, flash_attention_atom_ref,
     flash_attention_bwd_atom_ref)
-from repro_torch.kernels.flash_attention.ref import (
-    bwd_tile_space as bwd_tile_space_parts)
 
 launches = 0                      # forward kernel launches of this module
 bwd_launches = 0                  # backward atom kernel launches
@@ -38,6 +38,10 @@ delta_launches = 0                # backward delta-pass launches
 # path.  Two thread blocks fit one SM on both paths up to head_dim 128 (bf16
 # 83 KB of Q and a 2-stage K/V ring; f32 75 KB of staging), one at 256.
 BLOCK_Q = 64
+# The backward's tiles: query rows of a dQ tile and keys of a dK/dV tile,
+# each 64 rows for each of the two consumer warpgroups of its thread block.
+BWD_BLOCK_Q = 128
+BWD_BLOCK_K = 128
 BWD_HEAD_DIMS = (64, 128)         # the backward kernel's bf16 head dims
 _lib = None
 _bwd_lib = None
@@ -188,18 +192,23 @@ def _bwd_library():
     global _bwd_lib
     if _bwd_lib is None:
         lib = build.load("flash_attention_bwd")
-        lib.flash_attention_bwd_block.restype = ctypes.c_int
-        lib.flash_attention_bwd_block.argtypes = []
-        if lib.flash_attention_bwd_block() != BLOCK_Q:
-            raise RuntimeError("csrc/flash_attention_bwd.cu and ops.BLOCK_Q "
-                               "disagree on the tile")
+        for fn in (lib.flash_attention_bwd_block_q,
+                   lib.flash_attention_bwd_block_k):
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
+        if (lib.flash_attention_bwd_block_q(),
+                lib.flash_attention_bwd_block_k()) != (BWD_BLOCK_Q,
+                                                      BWD_BLOCK_K):
+            raise RuntimeError("csrc/flash_attention_bwd.cu and ops."
+                               "BWD_BLOCK_Q / BWD_BLOCK_K disagree on the "
+                               "tiles")
         fn = lib.flash_attention_bwd_delta
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
         fn = lib.flash_attention_bwd_atom
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                        + [ctypes.c_longlong] * 21 + [ctypes.c_void_p])
         _bwd_lib = lib
     return _bwd_lib
@@ -208,8 +217,15 @@ def _bwd_library():
 def bwd_tile_space(q, k) -> int:
     """Schedulable tiles of the backward: dQ tiles of q [B,Sq,Hq,D], then
     dK/dV tiles of k [B,Sk,Hk,D]."""
-    n_dq, n_kv = bwd_tile_space_parts(q, k, BLOCK_Q)
+    n_dq, n_kv = ref.bwd_tile_space(q, k, BWD_BLOCK_Q, BWD_BLOCK_K)
     return n_dq + n_kv
+
+
+def bwd_tile(t: int, q, k) -> tuple:
+    """What tile ``t`` of ``bwd_tile_space`` writes (``ref.bwd_tile`` at the
+    kernel's tiles): ("dq", b, h, r0, r1), query rows [r0, r1) of dq[b, :,
+    h], or ("dkv", b, hk, c0, c1), keys [c0, c1) of dk, dv[b, :, hk]."""
+    return ref.bwd_tile(t, q, k, BWD_BLOCK_Q, BWD_BLOCK_K)
 
 
 def _check_bwd_cuda(tensors) -> int:
@@ -280,7 +296,8 @@ def flash_attention_bwd_atom(q, k, v, do, lse, delta, dq, dk, dv, *,
     if q.device.type == "cpu":
         return flash_attention_bwd_atom_ref(
             q, k, v, do, lse, delta, dq, dk, dv, start=start,
-            num_tiles=num_tiles, causal=causal, window=window, block=BLOCK_Q)
+            num_tiles=num_tiles, causal=causal, window=window,
+            block_q=BWD_BLOCK_Q, block_k=BWD_BLOCK_K)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention backward has a CUDA kernel and "
                            f"a CPU version; no path for device {q.device}")
@@ -293,9 +310,9 @@ def flash_attention_bwd_atom(q, k, v, do, lse, delta, dq, dk, dv, *,
         err = _bwd_library().flash_attention_bwd_atom(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), start, num_tiles, -(-Sq // BLOCK_Q),
-            -(-Sk // BLOCK_Q), B, Hq, Hq // Hk, Sq, Sk, D, int(causal),
-            int(window), code, *ts, torch.cuda.current_stream().cuda_stream)
+            dv.data_ptr(), start, num_tiles, -(-Sq // BWD_BLOCK_Q), B, Hq,
+            Hq // Hk, Sq, Sk, D, int(causal), int(window), code, *ts,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_atom launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, Sk={Sk}, "

@@ -11,10 +11,10 @@ The forward can also give each row's log-sum-exp of its scaled scores
 (natural base, f32 ``[B,Hq,Sq]``; ``+inf`` for a row with no unmasked key),
 from which the backward recomputes the probabilities:
 ``flash_attention_bwd_atom_ref`` is the plain version of
-``csrc/flash_attention_bwd.cu`` over the same tile space (dQ tiles of the
-forward's ``(B*Hq) x ceil(Sq/64)``, then dK/dV tiles of ``(B*Hk) x
-ceil(Sk/64)``), each tile computed on its own, so atoms compose bit for bit
-in any order.
+``csrc/flash_attention_bwd.cu`` over the same tile space (dQ tiles of
+``(B*Hq) x ceil(Sq/block_q)``, then dK/dV tiles of ``(B*Hk) x
+ceil(Sk/block_k)``, numbered as ``bwd_tile`` says), each tile computed on its
+own, so atoms compose bit for bit in any order.
 """
 from __future__ import annotations
 
@@ -108,11 +108,35 @@ def flash_attention_atom_ref(q, k, v, o, *, start: int, num_tiles: int,
 # Backward
 # ---------------------------------------------------------------------------
 
-def bwd_tile_space(q, k, block: int = 64) -> tuple[int, int]:
+def bwd_tile_space(q, k, block_q: int = 128,
+                   block_k: int = 128) -> tuple[int, int]:
     """(dQ tiles, dK/dV tiles) of the backward's flat tile space."""
     B, Sq, Hq, _ = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    return B * Hq * -(-Sq // block), B * Hk * -(-Sk // block)
+    return B * Hq * -(-Sq // block_q), B * Hk * -(-Sk // block_k)
+
+
+def bwd_tile(t: int, q, k, block_q: int = 128,
+             block_k: int = 128) -> tuple:
+    """Tile ``t`` of the backward's flat tile space: ("dq", b, h, r0, r1),
+    query rows [r0, r1) of head h, or ("dkv", b, hk, c0, c1), keys [c0, c1)
+    of KV head hk.  Each part is numbered block by block, heaviest causal
+    block first: dQ tile t is head ``bh = t % (B*Hq)`` and the last query
+    block but ``t // (B*Hq)``; dK/dV tile ``u = t - n_dq`` is KV head ``bhk =
+    u % (B*Hk)`` and key block ``u // (B*Hk)``.  The kernel's ``tile_of``
+    is the same map."""
+    B, Sq, Hq, _ = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    n_dq, n_kv = bwd_tile_space(q, k, block_q, block_k)
+    if not 0 <= t < n_dq + n_kv:
+        raise ValueError(f"tile {t} outside [0, {n_dq + n_kv})")
+    if t < n_dq:
+        qi, bh = divmod(t, B * Hq)
+        r0 = (-(-Sq // block_q) - 1 - qi) * block_q
+        return ("dq", bh // Hq, bh % Hq, r0, min(Sq, r0 + block_q))
+    kj, bhk = divmod(t - n_dq, B * Hk)
+    c0 = kj * block_k
+    return ("dkv", bhk // Hk, bhk % Hk, c0, min(Sk, c0 + block_k))
 
 
 def attention_delta_ref(o, do):
@@ -133,28 +157,25 @@ def _probs(q, k, lse, qpos, kpos, *, causal, window, scale):
 def flash_attention_bwd_atom_ref(q, k, v, do, lse, delta, dq, dk, dv, *,
                                  start: int, num_tiles: int,
                                  causal: bool = True, window: int = 0,
-                                 block: int = 64):
+                                 block_q: int = 128, block_k: int = 128):
     """Tiles ``[start, start+num_tiles)`` of the backward's tile space,
-    written in place: dQ tile ``t < n_dq`` is head ``bh = t // n_qblocks``,
-    q rows ``[qi*block, (qi+1)*block)``; dK/dV tile ``u = t - n_dq`` is KV
-    head ``bhk = u // n_kblocks``, keys ``[kj*block, (kj+1)*block)``, summed
-    over the G query heads of its group in order.  ``lse``, ``delta``: f32
-    [B,Hq,Sq]; dq like q, dk/dv like k."""
+    written in place, each as ``bwd_tile`` maps it: a dQ tile's query rows
+    of one head; a dK/dV tile's keys of one KV head, summed over the G query
+    heads of its group in order.  ``lse``, ``delta``: f32 [B,Hq,Sq]; dq like
+    q, dk/dv like k."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
-    n_qb, n_kb = -(-Sq // block), -(-Sk // block)
-    n_dq, n_kv = bwd_tile_space(q, k, block)
+    n_dq, n_kv = bwd_tile_space(q, k, block_q, block_k)
     assert 0 <= start and start + num_tiles <= n_dq + n_kv
     scale = 1.0 / D ** 0.5
     off = Sk - Sq
     qpos_all = off + torch.arange(Sq, device=q.device)
     kpos_all = torch.arange(Sk, device=q.device)
     for t in range(start, start + num_tiles):
-        if t < n_dq:
-            bh, qi = divmod(t, n_qb)
-            b, h = divmod(bh, Hq)
-            r0, r1 = qi * block, min(Sq, (qi + 1) * block)
+        role, b, hh, lo, hi = bwd_tile(t, q, k, block_q, block_k)
+        if role == "dq":
+            h, r0, r1 = hh, lo, hi
             kk, vv = k[b, :, h // G], v[b, :, h // G]
             p = _probs(q[b, r0:r1, h], kk, lse[b, h, r0:r1],
                        qpos_all[r0:r1], kpos_all, causal=causal,
@@ -163,9 +184,7 @@ def flash_attention_bwd_atom_ref(q, k, v, do, lse, delta, dq, dk, dv, *,
             ds = p * (dp - delta[b, h, r0:r1, None])
             dq[b, r0:r1, h] = ((ds @ kk.float()) * scale).to(dq.dtype)
             continue
-        bhk, kj = divmod(t - n_dq, n_kb)
-        b, hk = divmod(bhk, Hk)
-        c0, c1 = kj * block, min(Sk, (kj + 1) * block)
+        hk, c0, c1 = hh, lo, hi
         kk, vv = k[b, c0:c1, hk], v[b, c0:c1, hk]
         gk = torch.zeros((c1 - c0, D), dtype=torch.float32, device=q.device)
         gv = torch.zeros_like(gk)

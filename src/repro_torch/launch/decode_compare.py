@@ -15,10 +15,13 @@ the smallest kernel (zeroing 16 KB): what any one launch measures at least.
 Each run holds its output against the plain version with ``headline_limit``.
 A run also times flash attention (K2) at the smoke's serving shape (``flash_attention_atom``, one llama3-8b prompt of 1000 tokens, causal,
 bf16, L2 warm as the smoke times it), held to 3e-2 against the plain
-version.  Prints one JSON line a run, then the card's name and power limit.
-Needs a GPU.
+version, and its backward (K2-bwd) at olmo-1b's training shape (the delta
+pass and one atom of every tile, L2 warm), held row by row to
+``BWD_REL_TOL`` against autograd of the plain version.  Prints one JSON line
+a run, then the card's name and power limit.  Needs a GPU.
 
-``chip_smoke.py`` times ``DECODE_SHAPES`` and holds them to the same limit.
+``chip_smoke.py`` times ``DECODE_SHAPES`` and the backward and holds them to
+the same limits.
 """
 from __future__ import annotations
 
@@ -54,6 +57,29 @@ COMPARE_SHAPES = {**{k: v[0] for k, v in DECODE_SHAPES.items()},
 # limit; leaving out one split of a row moves the output by several times
 # this limit (``dropped_split_err``, which the smoke reports and checks).
 DECODE_REL_TOL = 2.0 ** -6
+
+
+# flash attention's backward (bf16) against autograd of the plain version in
+# f32 on the same bf16 inputs, row by row: for each query row of dQ and each
+# key row of dK and dV, the max abs error over its heads and head dims over
+# the row's largest |gradient|.  The kernel rounds P and dS to bf16 for its
+# second products and its outputs to bf16 once, each a relative 2^-8; a row
+# sums up to thousands of such terms, so it differs by a few bf16 steps at
+# its largest value: the limit is eight (2^-5).  A row whose exact gradient
+# is zero or nearly (a query that sees one key: P = 1, dS = 0) is measured
+# against 2^-8 of the tensor's largest |gradient| instead of its own
+# (``bwd_row_err``).
+BWD_REL_TOL = 2.0 ** -5
+# the backward's timed shape (B, S, H, D), causal: olmo-1b's training step
+BWD_SHAPE = (2, 2048, 16, 128)
+
+
+def bwd_row_err(got, want):
+    """Each row's max abs error over its heads and head dims, over the row's
+    largest |want| (at least 2^-8 of the tensor's largest): [B, S]."""
+    d = (got.float() - want.float()).abs().amax(dim=(2, 3))
+    scale = want.float().abs().amax(dim=(2, 3))
+    return d / scale.clamp_min(2.0 ** -8 * scale.max().item() + 1e-30)
 
 
 def headline_limit(want) -> float:
@@ -147,6 +173,27 @@ def one(src: str, iters: int) -> dict:
     if not err.item() <= 3e-2:
         raise SystemExit(f"decode_compare: {src} flash: err {err}")
     out["flash_serving"] = {"ms": ms, "max_abs_err": err.item()}
+    B, S, H, D = BWD_SHAPE
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = f_ops.flash_attention(q, k, v, return_lse=True)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+
+    def bwd():
+        delta = f_ops.attention_delta(o, do)
+        f_ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, *grads,
+                                       start=0,
+                                       num_tiles=f_ops.bwd_tile_space(q, k))
+    ms = device_ms(bwd, iters=iters)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(f_ref.attention_ref(*leaves), leaves,
+                               do.float())
+    rows = {n: bwd_row_err(g, w).max().item()
+            for n, g, w in zip(("dq", "dk", "dv"), grads, want)}
+    if not max(rows.values()) <= BWD_REL_TOL:
+        raise SystemExit(f"decode_compare: {src} flash backward reads "
+                         f"{rows} > {BWD_REL_TOL}")
+    out["flash_bwd_olmo"] = {"ms": ms, "row_err": rows}
     return out
 
 

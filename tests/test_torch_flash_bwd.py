@@ -120,26 +120,85 @@ def test_backward_atoms_compose_bit_for_bit_in_any_order(case):
 
 def test_backward_atom_writes_only_its_tiles():
     """An atom spanning the end of the dQ tiles and the start of the dK/dV
-    tiles writes exactly those rows."""
+    tiles writes exactly those rows, at the backward's own tiles (128 query
+    rows, 128 keys; each part numbered heaviest causal block first)."""
     B, S, Hq, Hk, D = 1, 130, 2, 1, 16
+    assert (flash_ops.BWD_BLOCK_Q, flash_ops.BWD_BLOCK_K) == (128, 128)
     (q, _), (k, _), (v, _), (do, _) = _inputs(4, B, S, S, Hq, Hk, D)
     o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
     full = flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
     n_dq, n_kv = flash_ref.bwd_tile_space(q, k)
-    assert (n_dq, n_kv) == (2 * 3, 3) and flash_ops.bwd_tile_space(q, k) == 9
+    assert (n_dq, n_kv) == (2 * 2, 2) and flash_ops.bwd_tile_space(q, k) == 6
     delta = flash_ops.attention_delta(o, do)
     dq, dk, dv = (torch.full_like(t, 7.0) for t in (q, k, v))
     flash_ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, dq, dk, dv,
-                                       start=5, num_tiles=2)
-    # dQ tile 5: head 1, rows 128..129; dK/dV tile 0: keys 0..63
-    assert torch.equal(dq[:, 128:, 1], full[0][:, 128:, 1])
-    assert (dq[:, :128] == 7).all() and (dq[:, :, 0] == 7).all()
-    assert torch.equal(dk[:, :64], full[1][:, :64])
-    assert torch.equal(dv[:, :64], full[2][:, :64])
-    assert (dk[:, 64:] == 7).all() and (dv[:, 64:] == 7).all()
+                                       start=3, num_tiles=2)
+    # dQ tile 3: head 1, rows 0..127 (the first query block, taken last);
+    # dK/dV tile 0: keys 0..127
+    assert torch.equal(dq[:, :128, 1], full[0][:, :128, 1])
+    assert (dq[:, 128:] == 7).all() and (dq[:, :, 0] == 7).all()
+    assert torch.equal(dk[:, :128], full[1][:, :128])
+    assert torch.equal(dv[:, :128], full[2][:, :128])
+    assert (dk[:, 128:] == 7).all() and (dv[:, 128:] == 7).all()
     with pytest.raises(ValueError, match="outside"):
         flash_ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, dq, dk,
-                                           dv, start=8, num_tiles=2)
+                                           dv, start=5, num_tiles=2)
+
+
+# (B, Sq, Sk, Hq, Hk, causal, window): GQA with a ragged last query block,
+# Sq != Sk (cross-attention, non-causal), a window over a ragged tail
+TILE_CASES = [(1, 300, 300, 4, 2, True, 0),
+              (2, 130, 260, 2, 1, False, 0),
+              (1, 129, 129, 2, 2, True, 50)]
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=str)
+def test_backward_tiles_partition_the_outputs(case):
+    """``ops.bwd_tile`` (``ref.bwd_tile`` at the kernel's tiles) covers
+    every row of dq and every key of dk / dv exactly once, each part
+    heaviest causal block first: dQ tiles from the last query block down,
+    dK/dV tiles from the first key block up."""
+    B, Sq, Sk, Hq, Hk, causal, window = case
+    q, k = torch.empty(B, Sq, Hq, 16), torch.empty(B, Sk, Hk, 16)
+    seen = {"dq": torch.zeros(B, Sq, Hq, dtype=torch.int64),
+            "dkv": torch.zeros(B, Sk, Hk, dtype=torch.int64)}
+    last = {"dq": Sq, "dkv": -1}
+    for t in range(flash_ops.bwd_tile_space(q, k)):
+        role, b, h, lo, hi = flash_ops.bwd_tile(t, q, k)
+        assert flash_ops.bwd_tile(t, q, k) == flash_ref.bwd_tile(
+            t, q, k, flash_ops.BWD_BLOCK_Q, flash_ops.BWD_BLOCK_K)
+        seen[role][b, lo:hi, h] += 1
+        assert (lo <= last[role]) if role == "dq" else (lo >= last[role])
+        last[role] = lo
+    assert (seen["dq"] == 1).all() and (seen["dkv"] == 1).all()
+    with pytest.raises(ValueError, match="outside"):
+        flash_ops.bwd_tile(flash_ops.bwd_tile_space(q, k), q, k)
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=str)
+def test_backward_atom_of_one_tile_writes_what_the_map_says(case):
+    """An atom of one tile, through ``ops``, writes exactly the rows that
+    ``ops.bwd_tile`` gives it, with the values of the whole backward."""
+    B, Sq, Sk, Hq, Hk, causal, window = case
+    (q, _), (k, _), (v, _), (do, _) = _inputs(7, B, Sq, Sk, Hq, Hk, 16)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    full = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    delta = flash_ops.attention_delta(o, do)
+    for t in range(flash_ops.bwd_tile_space(q, k)):
+        role, b, h, lo, hi = flash_ops.bwd_tile(t, q, k)
+        got = [torch.full_like(x, float("nan")) for x in (q, k, v)]
+        flash_ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, *got,
+                                           start=t, num_tiles=1, **kw)
+        written = [~torch.isnan(g) for g in got]
+        want = [torch.zeros_like(w) for w in written]
+        if role == "dq":
+            want[0][b, lo:hi, h] = True
+        else:
+            want[1][b, lo:hi, h] = want[2][b, lo:hi, h] = True
+        for g, f, w, m in zip(got, full, written, want):
+            assert torch.equal(w, m)
+            assert torch.equal(g[m], f[m])
 
 
 def test_delta_is_rowsum_of_do_times_o():

@@ -683,6 +683,40 @@ def test_flash_bwd_kernel_random_shapes(cuda, seed):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,causal,window", [
+    (1, 300, 300, 4, 2, True, 0), (2, 130, 260, 2, 1, False, 0),
+    (1, 129, 129, 2, 2, True, 50)])
+def test_flash_bwd_kernel_tile_map(cuda, D, B, Sq, Sk, Hq, Hk, causal,
+                                   window):
+    """The kernel's tiles are ``ops.bwd_tile``'s: an atom of one tile
+    writes exactly the rows the map gives it, bit-equal to the whole
+    backward."""
+    rng = np.random.default_rng(D + Sq)
+    q, do = (_randn(rng, (B, Sq, Hq, D), torch.bfloat16, cuda)
+             for _ in range(2))
+    k, v = (_randn(rng, (B, Sk, Hk, D), torch.bfloat16, cuda)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    full = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    delta = flash_ops.attention_delta(o, do)
+    for t in range(flash_ops.bwd_tile_space(q, k)):
+        role, b, h, lo, hi = flash_ops.bwd_tile(t, q, k)
+        got = [torch.full_like(x, float("nan")) for x in (q, k, v)]
+        flash_ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, *got,
+                                           start=t, num_tiles=1, **kw)
+        want = [torch.zeros(x.shape, dtype=torch.bool, device=cuda)
+                for x in got]
+        if role == "dq":
+            want[0][b, lo:hi, h] = True
+        else:
+            want[1][b, lo:hi, h] = want[2][b, lo:hi, h] = True
+        for g, f, m in zip(got, full, want):
+            assert torch.equal(~torch.isnan(g), m)
+            assert torch.equal(g[m], f[m])
+
+
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
                                      (torch.bfloat16, 256)])
 def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda, dtype, D):

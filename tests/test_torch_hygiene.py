@@ -61,11 +61,17 @@ def test_bf16_paths_issue_wgmma_on_tiles_loaded_by_tma():
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                 "setmaxnreg", "wgmma.wait_group"):
         assert ptx in hopper, ptx
-    for name in ("atom_matmul.cu", "flash_attention.cu"):
+    # the tensor maps are __grid_constant__ kernel parameters (the
+    # backward's in one struct of them)
+    for name, maps in (("atom_matmul.cu", "CUtensorMap"),
+                       ("flash_attention.cu", "CUtensorMap"),
+                       ("flash_attention_bwd.cu", "Maps")):
         src = (PORT / "kernels" / "csrc" / name).read_text()
         assert '#include "hopper.cuh"' in src
         assert re.search(r"wgmma_m64n\d+k16_(ss|rs)<", src), name
-        assert "tma_load_" in src and "const __grid_constant__ CUtensorMap" in src
+        assert "tma_load_" in src and f"const __grid_constant__ {maps}" in src
+    assert re.search(r"struct Maps \{[^}]*CUtensorMap", (
+        PORT / "kernels" / "csrc" / "flash_attention_bwd.cu").read_text())
     # tensor maps are looked up through the CUDA runtime: no -lcuda
     assert "cudaGetDriverEntryPoint" in hopper
     from repro_torch.kernels import build
@@ -97,6 +103,34 @@ def test_ptxas_report_reads_registers_spills_and_warnings(monkeypatch,
         "matmul_f32_kernel<1>": {"spill_stores": 48, "spill_loads": 60,
                                  "registers": 128}}
     assert len(rep["warnings"]) == 1 and "C7508" in rep["warnings"][0]
+
+
+PTXAS_LOG_CALL = """\
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110mbar_faultEv
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN12_GLOBAL__N_121flash_attn_bwd_kernelILi128EEEvNS_4MapsENS_4ArgsE'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_attn_bwd_kernelILi128EEEvNS_4MapsENS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_attn_bwd_kernelILi128EEEvNS_4MapsENS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110mbar_faultEv
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+"""
+
+
+def test_ptxas_report_keeps_called_functions_out_of_kernels(monkeypatch,
+                                                           tmp_path):
+    """A called function's properties (the waits' trap) are not a kernel's;
+    a serialized-wgmma note is reported with the warnings."""
+    from repro_torch.kernels import build
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    build.library_path("flash_attention_bwd").with_suffix(".log").write_text(
+        PTXAS_LOG_CALL)
+    rep = build.ptxas_report("flash_attention_bwd")
+    assert rep["kernels"] == {
+        "flash_attn_bwd_kernel<128>": {"spill_stores": 0, "spill_loads": 0,
+                                       "registers": 168}}
+    assert len(rep["warnings"]) == 1 and "C7512" in rep["warnings"][0]
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
