@@ -21,7 +21,10 @@ layers), whisper-small and llava-next-34b, trains full-size ``olmo-1b``
 for 6 steps through ``repro_torch.launch.train.train`` (flash attention's
 forward and its backward kernel once per layer and microbatch; a 2-layer
 step held against plain attention forward and backward, with planted
-backward faults), and runs the atom-count sweep
+backward faults), checkpoints that run's final state through
+``repro_torch.checkpoint`` (save, restore onto the card, every leaf and a
+resumed step bit-equal to the live state's, and a resume through
+``launch.train.train``), and runs the atom-count sweep
 ``repro_torch.launch.atoms.sweep`` (the atomized matmul at the full-width
 ``llama3-8b`` projections, and flash attention).  Every phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line is
@@ -1740,7 +1743,9 @@ def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
     random weights from a seed, counts set to 0 just before and read just
     after: the forward and backward kernels once per attention layer a
     microbatch.  Then ``train_vs_plain``.  ``with_profile`` adds a
-    ``profile`` line of one train step."""
+    ``profile`` line of one train step.  Returns the launch counts and the
+    run (its final state, config, ``TrainConfig``, batch and sequence) for
+    ``checkpoint_phase``."""
     import statistics
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import train
@@ -1826,7 +1831,161 @@ def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
                           f"microbatches, AdamW f32 moments",
             "optimizer": "its AdamW update alone (f32 gradients)"}, **out)
         del grads
-    del state
+    if real:
+        torch.cuda.empty_cache()
+    return launches, dict(state=state, cfg=cfg, tc=tc, batch=batch, seq=seq)
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint path
+# ---------------------------------------------------------------------------
+
+# free disk the checkpoint phase needs, in state sizes: one checkpoint and
+# the entry point's next (keep-last-k holds both), with room to spare
+CKPT_DISK_FACTOR = 2.2
+
+
+def _states_equal(torch, a, b) -> bool:
+    from repro_torch.checkpoint.sharded import _flatten
+    fa, fb = _flatten(a), _flatten(b)
+    return list(fa) == list(fb) and all(
+        fa[k].dtype == fb[k].dtype and fa[k].device == fb[k].device
+        and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def checkpoint_phase(torch, dev, run: dict, *, real: bool):
+    """The train phase's final olmo-1b state through the port's
+    checkpointing, in a fresh temporary directory outside the repository
+    (removed at the end, whatever happens): an async save through
+    ``CheckpointManager`` (the stall until ``save`` returns: every leaf
+    fetched to the host; the write until ``wait_all``), a restore onto the
+    card from a template on the ``meta`` device (every leaf ``torch.equal``
+    to the live state; the files' read alone timed apart), one ``train_step`` from the live and one from the
+    restored state on batch 0 (losses and every new param bit-equal), then
+    ``launch.train.train`` one step past the checkpoint, which restores it,
+    trains on batch 0 again (the reference's data replay) and saves: its
+    loss bit-equal to the resumed step's.  Counts set to 0 before the three
+    steps and read after: K2, K2-bwd and delta once per attention layer a
+    microbatch a step."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.checkpoint.sharded import _flatten
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import Coordinator, CoordinatorConfig
+    from repro_torch.launch.train import state_template, to_device, train
+    from repro_torch.models import transformer
+    from repro_torch.train.step import make_train_step
+    state, cfg, tc = run["state"], run["cfg"], run["tc"]
+    batch, seq = run["batch"], run["seq"]
+    leaves = _flatten(state)
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    step = int(state.opt.step)
+
+    def sync():
+        if real:
+            torch.cuda.synchronize()
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        need = int(CKPT_DISK_FACTOR * state_bytes)
+        if free < need:
+            fail(f"checkpoint: {free} bytes free under {d}, {need} needed "
+                 f"({CKPT_DISK_FACTOR} x the state's {state_bytes})")
+        mgr = CheckpointManager(d)
+        sync()
+        t0 = time.perf_counter()
+        mgr.save(state, step)
+        t1 = time.perf_counter()
+        mgr.wait_all()
+        t2 = time.perf_counter()
+        stepdir = os.path.join(d, f"step_{step}")
+        shard_bytes = {f: os.path.getsize(os.path.join(stepdir, f))
+                       for f in sorted(os.listdir(stepdir))
+                       if f.endswith(".npz")}
+        manifest_bytes = os.path.getsize(os.path.join(stepdir,
+                                                      "manifest.json"))
+
+        template = state_template(cfg, tc)
+        t3 = time.perf_counter()
+        restored = mgr.restore(template, device=dev)
+        sync()
+        restore_s = time.perf_counter() - t3
+        # the restore's read alone: every member of the same files again,
+        # into host memory
+        t5 = time.perf_counter()
+        for f in shard_bytes:
+            with np.load(os.path.join(stepdir, f)) as z:
+                for k in z.files:
+                    z[k]
+        read_s = time.perf_counter() - t5
+        restored_equal = _states_equal(torch, restored, state)
+        if not restored_equal:
+            fail("checkpoint: the restored state is not bit-equal to the "
+                 "live state")
+
+        _, step_fn = make_train_step(cfg, tc, device=dev)
+        batch0 = to_device(next(SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            seed=0)).batches()), dev)
+        reset_counts()
+        live, live_m = step_fn(state, batch0)
+        live_params = live.params
+        del live
+        resumed, resumed_m = step_fn(restored, batch0)
+        del restored
+        step_equal = bool(torch.equal(live_m["loss"], resumed_m["loss"])) \
+            and all(torch.equal(a, b) for a, b in zip(
+                _flatten(live_params).values(),
+                _flatten(resumed.params).values()))
+        resumed_loss = resumed_m["loss"].item()
+        del live_params, resumed
+        if not step_equal:
+            fail(f"checkpoint: the step from the restored state (loss "
+                 f"{resumed_loss}) is not bit-equal to the step from the "
+                 f"live state (loss {live_m['loss'].item()})")
+
+        coord = Coordinator(1, CoordinatorConfig())
+        t4 = time.perf_counter()
+        last, losses = train(cfg, steps=step + 1, batch=batch, seq=seq,
+                             tc=tc, seed=0, device=dev, ckpt_dir=d,
+                             coordinator=coord, verbose=False)
+        sync()
+        entry_s = time.perf_counter() - t4
+        launches = read_counts()
+        entry_equal = losses == [resumed_loss]
+        if not (entry_equal and int(last.opt.step) == step + 1
+                and latest_step(d) == step + 1):
+            fail(f"checkpoint: train(steps={step + 1}) from the step-{step} "
+                 f"checkpoint gave losses {losses} (want [{resumed_loss}]), "
+                 f"step {int(last.opt.step)}, latest {latest_step(d)}")
+        del last
+        per = 3 * tc.n_micro * transformer.attention_layers(cfg)
+        want = {"flash_attention": per, "flash_attention_bwd": per,
+                "attention_delta": per, "decode_attention": 0,
+                "atom_matmul": 0}
+        if real and launches != want:
+            fail(f"checkpoint: launch counts {launches} but the path implies "
+                 f"{want}")
+        write_s = t2 - t1
+        emit("checkpoint", arch=cfg.name, full_size=real, step=step,
+             leaves=len(leaves), state_bytes=state_bytes,
+             disk_free_bytes=free, shard_bytes=shard_bytes,
+             manifest_bytes=manifest_bytes,
+             save_stall_ms=(t1 - t0) * 1e3, write_s=write_s,
+             write_GBps=state_bytes / write_s / 1e9, restore_s=restore_s,
+             restore_GBps=state_bytes / restore_s / 1e9, read_s=read_s,
+             read_GBps=state_bytes / read_s / 1e9,
+             bit_equal={"restored_state": restored_equal,
+                        "resumed_step": step_equal,
+                        "entry_point_loss": entry_equal},
+             resumed_loss=resumed_loss, entry_point_s=entry_s,
+             coordinator_events=coord.events, launches=launches,
+             expected_launches=want)
+    finally:
+        shutil.rmtree(d)
     if real:
         torch.cuda.empty_cache()
     return launches
@@ -1931,7 +2090,11 @@ def main(argv) -> int:
     runs.append(serve_phase(torch, dev, "llava-next-34b", real=real,
                             with_profile=prof, **sizes))
     # the training path: full-size olmo-1b, 6 steps
-    runs.append(train_phase(torch, dev, real=real, with_profile=prof))
+    counts, train_run = train_phase(torch, dev, real=real, with_profile=prof)
+    runs.append(counts)
+    # its final state checkpointed, restored and resumed
+    runs.append(checkpoint_phase(torch, dev, train_run, real=real))
+    del train_run
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     launches["atom_matmul"] = atoms_phase(torch, dev, real)["atom_matmul"]
 

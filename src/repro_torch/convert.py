@@ -1,4 +1,5 @@
-"""Parameter conversion between the JAX package's trees and this package's.
+"""Parameter (and train-state) conversion between the JAX package's trees
+and this package's.
 
 Parameters cross as numpy arrays, leaf by leaf, with the same nested-dict
 paths and the same shapes (``wq [d,Hq,hd]``, ``wo [Hq,hd,d]``, ``mlp/wi
@@ -35,6 +36,32 @@ def from_jax_params(tree: PyTree, *, device) -> PyTree:
         return {str(k): from_jax_params(v, device=device)
                 for k, v in tree.items()}
     return _tensor(np.asarray(tree)).to(device)
+
+
+def from_jax_train_state(state, *, device):
+    """The other package's ``TrainState(params, OptState(step, mu, nu),
+    err_fb)`` as this package's, leaf by leaf and bit for bit: an int8
+    moment (any leaf with ``q``, ``scale`` and ``shape``) becomes a
+    ``QTensor``, ``err_fb=None`` stays None."""
+    from repro_torch.optim.optimizers import OptState, QTensor
+    from repro_torch.train.step import TrainState
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {str(k): moments(v) for k, v in tree.items()}
+        if all(hasattr(tree, a) for a in ("q", "scale", "shape")):
+            return QTensor(_tensor(np.asarray(tree.q)).to(device),
+                           _tensor(np.asarray(tree.scale)).to(device),
+                           tuple(tree.shape))
+        return _tensor(np.asarray(tree)).to(device)
+
+    opt = state.opt
+    return TrainState(
+        from_jax_params(state.params, device=device),
+        OptState(_tensor(np.asarray(opt.step)).to(device), moments(opt.mu),
+                 moments(opt.nu)),
+        None if state.err_fb is None
+        else from_jax_params(state.err_fb, device=device))
 
 
 def to_numpy_tree(tree: PyTree) -> PyTree:

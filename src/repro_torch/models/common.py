@@ -1,13 +1,18 @@
-"""Shared model infrastructure: param trees, initializers, dtype helpers.
+"""Shared model infrastructure: param trees, initializers, logical axes,
+dtype helpers.
 
 Models are plain functions on tensors: ``init_*`` builds a nested dict of
 tensors (the parameter tree; paths like ``blocks/0/attn/wq``), apply
 functions take ``(params, inputs)``.  Everything that allocates takes an
 explicit ``device``; initialisers draw from an explicit ``torch.Generator``.
+Sharding is expressed through *logical axes*: ``logical_axes()`` maps each
+leaf's path to logical dimension names, which ``sharding.py`` resolves to
+mesh axes.
 """
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Optional
 
 import numpy as np
@@ -33,8 +38,18 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+class _MetaGenerator:
+    """Stands in for a generator on the ``meta`` device, which has none: the
+    initialisers make tensors of the right shapes and dtypes there and draw
+    nothing (a tree of shapes, such as a checkpoint restore's template)."""
+    device = torch.device("meta")
+
+
 def make_generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=torch.device(device))
+    device = torch.device(device)
+    if device.type == "meta":
+        return _MetaGenerator()
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
 
@@ -53,6 +68,8 @@ DRAW_ELEMS = 1 << 26
 def normal_init(gen: torch.Generator, shape, dtype, scale: float = 0.02):
     shape = tuple(shape)
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     width = math.prod(shape[1:])
     rows = out.view(shape[0] if shape else 1, width)
     step = max(1, DRAW_ELEMS // max(1, width))
@@ -176,3 +193,91 @@ def tree_map(fn, tree: PyTree) -> PyTree:
 def count_params(params: PyTree) -> int:
     return sum(int(np.prod(x.shape)) for _, x in tree_paths(params)
                if hasattr(x, "shape"))
+
+
+def cast_tree(params: PyTree, dtype: torch.dtype) -> PyTree:
+    """Every floating leaf cast to ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes by param path
+# ---------------------------------------------------------------------------
+# Rules are (regex-on-path, axes-tuple).  Paths look like
+# "blocks/0/attn/wq", "embed/tok", "blocks/0/moe/wi", ...  A leading
+# "layers" axis is added for stacked layer params.
+
+AXIS_RULES: list[tuple[str, tuple[str, ...]]] = [
+    (r".*embed/tok$", ("vocab", "embed")),
+    (r".*embed/pos$", (None, "embed")),
+    (r".*head/w$", ("embed", "vocab")),
+    (r".*(attn|xattn)/wq$", ("embed", "q_heads", "head")),
+    (r".*(attn|xattn)/wk$", ("embed", "kv_heads", "head")),
+    (r".*(attn|xattn)/wv$", ("embed", "kv_heads", "head")),
+    (r".*(attn|xattn)/wo$", ("q_heads", "head", "embed")),
+    (r".*(attn|xattn)/bq$", ("q_heads", "head")),
+    (r".*(attn|xattn)/bk$", ("kv_heads", "head")),
+    (r".*(attn|xattn)/bv$", ("kv_heads", "head")),
+    (r".*mlp/wi$", ("embed", "ff")),
+    (r".*mlp/wg$", ("embed", "ff")),
+    (r".*mlp/wo$", ("ff", "embed")),
+    (r".*moe/router$", ("embed", "experts")),
+    (r".*moe/wi$", ("experts", "embed", "expert_ff")),
+    (r".*moe/wg$", ("experts", "embed", "expert_ff")),
+    (r".*moe/wo$", ("experts", "expert_ff", "embed")),
+    (r".*moe/shared_wi$", ("embed", "ff")),
+    (r".*moe/shared_wg$", ("embed", "ff")),
+    (r".*moe/shared_wo$", ("ff", "embed")),
+    # RG-LRU recurrent block
+    (r".*rec/w_in$", ("embed", "rnn")),
+    (r".*rec/w_gate_in$", ("embed", "rnn")),
+    (r".*rec/conv_w$", (None, "rnn")),
+    (r".*rec/conv_b$", ("rnn",)),
+    (r".*rec/w_a$", ("rnn", "rnn_heads")),
+    (r".*rec/w_i$", ("rnn", "rnn_heads")),
+    (r".*rec/lam$", ("rnn",)),
+    (r".*rec/w_out$", ("rnn", "embed")),
+    # mLSTM / sLSTM
+    (r".*mlstm/w_up$", ("embed", "ff")),
+    (r".*mlstm/w_(q|k|v)$", ("ff", "q_heads", "head")),
+    (r".*mlstm/w_(ig|fg)$", ("ff", "q_heads")),
+    (r".*mlstm/b_(ig|fg)$", ("q_heads",)),
+    (r".*mlstm/conv_w$", (None, "ff")),
+    (r".*mlstm/w_down$", ("ff", "embed")),
+    (r".*slstm/w_(i|f|z|o)$", ("embed", "q_heads", "head")),
+    (r".*slstm/r_(i|f|z|o)$", ("q_heads", "head", "head")),
+    (r".*slstm/b_(i|f|z|o)$", ("q_heads", "head")),
+    (r".*slstm/ffn_wi$", ("embed", "ff")),
+    (r".*slstm/ffn_wg$", ("embed", "ff")),
+    (r".*slstm/ffn_wo$", ("ff", "embed")),
+    # norms / misc
+    (r".*(norm|ln)[^/]*/scale$", ("embed",)),
+    (r".*(norm|ln)[^/]*/bias$", ("embed",)),
+    (r".*vlm_proj/w$", ("embed", "embed2")),
+]
+
+
+def logical_axes_for_path(path: str, ndim: int) -> tuple:
+    for pat, axes in AXIS_RULES:
+        if re.match(pat, path):
+            if len(axes) == ndim:
+                return axes
+            if len(axes) == ndim - 1:
+                # stacked layer param: leading layer axis
+                return ("layers",) + axes
+    return (None,) * ndim
+
+
+def logical_axes(params: PyTree) -> PyTree:
+    """Mirror tree of logical-axis tuples for a param tree (its leaves
+    tensors, on any device ``meta`` included, or arrays)."""
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        return logical_axes_for_path(
+            prefix, tree.ndim if hasattr(tree, "ndim") else np.ndim(tree))
+
+    return walk(params, "")

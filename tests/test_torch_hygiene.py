@@ -16,8 +16,8 @@ FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "tools").glob("*.py")))
 
 IMPORT = re.compile(
-    r"^\s*(?:import\s+(?:jax|repro)(?:[.\s,]|$)"
-    r"|from\s+(?:jax|repro)(?:\.[\w.]*)?\s+import)", re.M)
+    r"^\s*(?:import\s+(?:jax|repro|ml_dtypes)(?:[.\s,]|$)"
+    r"|from\s+(?:jax|repro|ml_dtypes)(?:\.[\w.]*)?\s+import)", re.M)
 
 
 def test_port_has_files():
@@ -29,6 +29,8 @@ def test_port_has_files():
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_of_the_jax_package(path):
+    """Nor of ``ml_dtypes``: the checkpoints keep bf16 / fp8 as raw bits
+    without it."""
     assert not IMPORT.search(path.read_text()), path
 
 
@@ -152,9 +154,12 @@ def test_import_leaves_jax_and_triton_out():
         "import repro_torch.roofline.analysis, repro_torch.launch.atoms\n"
         "import repro_torch.launch.train, repro_torch.train.step\n"
         "import repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.distributed\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.shardings\n"
+        "import repro_torch.models.sharding\n"
         "import torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro', 'triton')]\n"
+        "('jax', 'jaxlib', 'repro', 'triton', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_available()\n"
         "print('clean')\n")

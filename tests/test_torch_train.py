@@ -342,12 +342,18 @@ def test_train_features_converge(moment_dtype):
     assert losses[-1] < losses[0] + 0.1
 
 
-def test_launch_train_cli(capsys):
+def test_launch_train_cli(capsys, tmp_path):
     train_main(["--reduced", "--device", "cpu", "--steps", "2", "--batch",
                 "2", "--seq", "16", "--remat", "full"])
     assert "first loss" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="A9"):
-        train_main(["--reduced", "--device", "cpu", "--ckpt-dir", "x"])
+    ckpt = tmp_path / "ckpt"
+    train_main(["--reduced", "--device", "cpu", "--steps", "2", "--batch",
+                "2", "--seq", "16", "--ckpt-dir", str(ckpt)])
+    assert "first loss" in capsys.readouterr().out
+    assert (ckpt / "step_2" / "COMMIT").exists()
+    train_main(["--reduced", "--device", "cpu", "--steps", "2",
+                "--ckpt-dir", str(ckpt)])
+    assert "nothing to do" in capsys.readouterr().out
 
 
 def test_train_defaults_to_the_gpu():
