@@ -26,7 +26,15 @@ backward faults), checkpoints that run's final state through
 resumed step bit-equal to the live state's, and a resume through
 ``launch.train.train``), and runs the atom-count sweep
 ``repro_torch.launch.atoms.sweep`` (the atomized matmul at the full-width
-``llama3-8b`` projections, and flash attention).  Every phase prints one
+``llama3-8b`` projections, and flash attention), and holds the LithOS
+simulator's cost model on ``repro_torch.core``'s ``DeviceSpec.h100_like``
+against the card (``lithos`` lines: the SM count, cluster occupancy, decode
+attention's fixed cost and the idle and loaded power draw beside the
+profile's constants; decode attention at every entry of llama3-8b's
+``decode_cost_table``, flash attention at four prefill lengths and the
+sweep's matmul atom counts, each measured beside the model's latency and
+the roofline; ``evaluate`` of two mixes under both engines, bit-equal).
+Every phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -83,7 +91,8 @@ TOL = {("decode", "float32"): 2e-5, ("decode", "bfloat16"): 3e-2,
 FLASH_REL_TOL = 2.0 ** -6
 # keys of a KV block on flash attention's bf16 path (``TBK`` in
 # csrc/flash_attention.cu): the planted fault drops one at a window's start
-KV_BLOCK = 64
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    KEY_BLOCK as KV_BLOCK)
 # full-depth bf16 model, kernels against plain attention: the attention
 # outputs differ by single bf16 roundings, which the layers above carry on;
 # logits are O(1), and the limit is a tenth of that.  An MoE model's plain
@@ -164,9 +173,15 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def nvidia_smi_line() -> str:
+def card_uuid(torch, dev) -> str:
+    """The card in use as ``nvidia-smi -i`` names it (``nvidia-smi`` does
+    not read ``CUDA_VISIBLE_DEVICES``)."""
+    return f"GPU-{torch.cuda.get_device_properties(dev).uuid}"
+
+
+def nvidia_smi_line(uuid: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", uuid, "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
@@ -2016,7 +2031,378 @@ def atoms_phase(torch, dev, real: bool):
         fail("atoms: one atom differs from the plain version")
     emit("atoms", seconds=seconds, launches=launches, rows=atoms.rows(records),
          records=records)
-    return launches
+    return launches, records
+
+
+# ---------------------------------------------------------------------------
+# the control plane's cost model against the card
+# ---------------------------------------------------------------------------
+
+# the prefill lengths at which flash attention is held against
+# ``llm_costs.flash_attention_work`` (llama3-8b's heads, one sequence,
+# non-causal): two of them not multiples of 512, where the Hopper kernel's
+# 64-row tiles and the reference's 512-row blocks pad differently
+LITHOS_PREFILL = ((512, 1000, 2048, 4096), (64, 100))
+# power draw: ``nvidia-smi`` sampled every 100 ms for 1 s, after 2 s idle
+# and over the last second of 3 s of back-to-back atom matmuls
+POWER_PERIOD_S = 0.1
+POWER_WINDOW_S = 1.0
+POWER_IDLE_S = 2.0
+POWER_LOAD_S = 3.0
+
+
+def power_sampler(uuid: str):
+    """Start one ``nvidia-smi`` sampling the card's power.draw every
+    ``POWER_PERIOD_S``; the function returned stops it and returns the
+    readings (W), failing the run if a line does not parse."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", uuid, "--query-gpu=power.draw",
+         "--format=csv,noheader,nounits", "-lms",
+         str(round(POWER_PERIOD_S * 1e3))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def stop() -> list:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+        try:
+            readings = [float(line) for line in out.split()]
+        except ValueError:
+            readings = []
+        if not readings:
+            fail(f"lithos_device: power.draw could not be read: {out!r}")
+        return readings
+    return stop
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def whole_card_ms(flops, n_bytes) -> float:
+    """The least time the whole card takes for this work (data sheet, bf16
+    rate: a lower bound for any route)."""
+    return max(flops / H100.peak_flops, n_bytes / H100.hbm_bw) * 1e3
+
+
+def guard_roofline(what, ms, flops, n_bytes):
+    """A measured time below the whole card's roofline means the work terms
+    count bytes or flops the kernel does not do."""
+    floor = whole_card_ms(flops, n_bytes)
+    if math.isfinite(ms) and ms < floor:
+        fail(f"{what}: measured {ms} ms is below the whole card's roofline "
+             f"{floor} ms: the work terms count work the kernel does not do")
+    return floor
+
+
+def lithos_device(torch, dev, real: bool, smi: str, uuid, flush) -> dict:
+    """The card's readings behind ``DeviceSpec.h100_like``'s measured
+    constants, each beside the constant."""
+    from repro_torch.core import types as T
+    from repro_torch.core.llm_costs import H100_CLUSTER_FIT
+    from repro_torch.kernels.atom_matmul import ops as m_ops
+    from repro_torch.kernels.atoms import tile_count
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    spec = T.DeviceSpec.h100_like()
+    out = {"nvidia_smi": smi, "uuid": uuid}
+    if real:
+        props = torch.cuda.get_device_properties(dev)
+        if props.multi_processor_count != T.H100_SMS:
+            fail(f"lithos_device: {props.multi_processor_count} SMs, not "
+                 f"{T.H100_SMS}: h100_like's 66 slices are not this card's")
+        fit = d_ops.cluster_fit(dev, 128)
+        if tuple(fit) != tuple(H100_CLUSTER_FIT):
+            fail(f"lithos_device: cluster_fit(dev, 128) = {fit}, not "
+                 f"llm_costs.H100_CLUSTER_FIT = {H100_CLUSTER_FIT}")
+        sms = props.multi_processor_count
+        out.update(sms=sms, tpcs=sms // 2, total_memory=props.total_memory,
+                   total_memory_constant=T.H100_MEMORY,
+                   cluster_fit=list(fit),
+                   cluster_fit_constant=list(H100_CLUSTER_FIT),
+                   decode_ctas_per_sm=fit[0] / sms,
+                   decode_ctas_per_sm_constant=T.H100_DECODE_CTAS_PER_SM,
+                   occupancy_constant=spec.occupancy)
+    else:
+        out["skipped"] = ("the SM count, total_memory, cluster_fit and the "
+                          "power draw need the card; not read in a "
+                          "rehearsal")
+    # decode attention's fixed cost: its headline shape, every length 0
+    B, Hq, Hk, D, S, _ = DECODE_SHAPES["serving"][not real]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    q = _randn(torch, gen, (B, Hq, D), torch.bfloat16, dev)
+    kc = _randn(torch, gen, (B, S, Hk, D), torch.bfloat16, dev)
+    vc = _randn(torch, gen, (B, S, Hk, D), torch.bfloat16, dev)
+    lens = torch.zeros(B, dtype=torch.int32, device=dev)
+    o = torch.empty_like(q)
+    k1 = lambda: d_ops.decode_attention_atom(q, kc, vc, lens, o, start=0,
+                                             num_rows=B * Hk)
+    k1()
+    if o.abs().max().item() != 0.0:
+        fail("lithos_device: decode attention at length 0 gave non-zeros")
+    out.update(k1_zero_lens_ms=time_ms(torch, k1, iters=50 if real else 1,
+                                       flush=flush),
+               launch_overhead_ms_constant=spec.launch_overhead * 1e3,
+               k1_shape={"B": B, "Hq": Hq, "Hk": Hk, "D": D, "S": S,
+                         "lens": 0})
+    del q, kc, vc
+    if not real:
+        return out
+    # power: idle, then under back-to-back atom matmuls at llama3-8b's
+    # widest prefill projection (the atoms phase's llama3-8b_wi_wg)
+    M, K, N = 1000, 4096, 14336
+    a = _randn(torch, gen, (M, K), torch.bfloat16, dev)
+    b = _randn(torch, gen, (K, N), torch.bfloat16, dev)
+    c = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    tiles = tile_count(M, N, 256, 256)
+    torch.cuda.synchronize()
+    time.sleep(POWER_IDLE_S)
+    stop = power_sampler(uuid)
+    time.sleep(POWER_WINDOW_S)
+    idle = stop()
+    t0 = time.time()
+    stop, batches = None, []
+    while time.time() - t0 < POWER_LOAD_S:
+        # at most two batches of launches in flight: the card never idles
+        # and the host clock stays within a batch of the device
+        for _ in range(20):
+            m_ops.matmul_atom(a, b, c, start=0, num_tiles=tiles)
+        ev = torch.cuda.Event()
+        ev.record()
+        batches.append(ev)
+        if len(batches) > 2:
+            batches.pop(0).synchronize()
+        if stop is None and time.time() - t0 >= POWER_LOAD_S - POWER_WINDOW_S:
+            stop = power_sampler(uuid)
+    loaded = stop()
+    torch.cuda.synchronize()
+    out.update(idle_w=_median(idle), idle_w_readings=idle,
+               idle_w_constant=T.H100_IDLE_W,
+               loaded_w=_median(loaded), loaded_w_readings=loaded,
+               loaded_w_constant=T.H100_LOADED_W,
+               load={"kernel": "atom_matmul", "M": M, "K": K, "N": N,
+                     "dtype": "bfloat16", "seconds": POWER_LOAD_S})
+    return out
+
+
+def lithos_decode(torch, dev, real: bool, flush, spec):
+    """Decode attention at every entry of llama3-8b's ``decode_cost_table``
+    on ``h100_like``: measured against the cost model and the roofline.
+    Returns the rows and the timed runs' launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.llm_costs import decode_cost_table
+    from repro_torch.kernels.decode_attention import ops
+    cfg = get_config("llama3-8b")
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    table = (decode_cost_table(cfg, spec) if real else
+             decode_cost_table(cfg, spec, batches=(1, 2), kv_lens=(64, 130)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rows, launches = [], 0
+    for e in table:
+        B, S = e.batch, e.kv_len
+        err, plan = check_decode(torch, dev, gen, B=B, Hq=Hq, Hk=Hk, D=D,
+                                 S=S, dtype="bfloat16", lens=[S] * B)
+        if real and B * Hk * plan["nsplit"] != e.work.n_blocks:
+            fail(f"lithos_decode B={B} S={S}: the kernel runs "
+                 f"{B * Hk} x {plan['nsplit']} thread blocks, the cost model "
+                 f"{e.work.n_blocks}")
+        q = _randn(torch, gen, (B, Hq, D), torch.bfloat16, dev)
+        kc = _randn(torch, gen, (B, S, Hk, D), torch.bfloat16, dev)
+        vc = _randn(torch, gen, (B, S, Hk, D), torch.bfloat16, dev)
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        o = torch.empty_like(q)
+        before = ops.launches
+        ms = time_ms(torch, lambda: ops.decode_attention_atom(
+            q, kc, vc, lens, o, start=0, num_rows=B * Hk),
+            iters=30 if real else 1, flush=flush)
+        launches += ops.launches - before
+        floor = guard_roofline(f"lithos_decode B={B} S={S}", ms,
+                               e.work.flops, e.work.bytes)
+        model_ms = e.latency_s * 1e3
+        rows.append({"B": B, "S": S, "nsplit": plan["nsplit"],
+                     "n_blocks": e.work.n_blocks, "ms": ms,
+                     "model_ms": model_ms, "roofline_ms": e.roofline_s * 1e3,
+                     "whole_card_ms": floor, "measured_over_model":
+                     ms / model_ms, "max_abs_err": err})
+        del q, kc, vc
+    return rows, launches
+
+
+def lithos_prefill(torch, dev, real: bool, spec):
+    """Flash attention, non-causal bf16, at llama3-8b's heads against
+    ``flash_attention_work`` on ``h100_like``.  Returns the rows and the
+    timed runs' launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.llm_costs import (flash_attention_work,
+                                            roofline_terms)
+    from repro_torch.kernels.flash_attention import ops
+    cfg = get_config("llama3-8b")
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cost = CostModel(spec)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows, launches = [], 0
+    for S in LITHOS_PREFILL[not real]:
+        chk = check_flash(torch, dev, gen, B=1, Sq=S, Sk=S, Hq=Hq, Hk=Hk,
+                          D=D, dtype="bfloat16", causal=False)
+        w = flash_attention_work(1, S, S, Hq, Hk, D)
+        q = _randn(torch, gen, (1, S, Hq, D), torch.bfloat16, dev)
+        k = _randn(torch, gen, (1, S, Hk, D), torch.bfloat16, dev)
+        v = _randn(torch, gen, (1, S, Hk, D), torch.bfloat16, dev)
+        tiles = ops.tile_space(q)
+        if tiles != w.n_blocks:
+            fail(f"lithos_prefill S={S}: {tiles} tiles, the cost model "
+                 f"{w.n_blocks}")
+        o = torch.empty_like(q)
+        before = ops.launches
+        ms = time_ms(torch, lambda: ops.flash_attention_atom(
+            q, k, v, o, start=0, num_tiles=tiles, causal=False),
+            iters=20 if real else 1)
+        launches += ops.launches - before
+        floor = guard_roofline(f"lithos_prefill S={S}", ms, w.flops, w.bytes)
+        model_ms = cost.latency(w, spec.n_slices) * 1e3
+        rows.append({"B": 1, "Sq": S, "Skv": S, "tiles": tiles, "ms": ms,
+                     "model_ms": model_ms,
+                     "roofline_ms": roofline_terms(w, spec).bound_time * 1e3,
+                     "whole_card_ms": floor,
+                     "measured_over_model": ms / model_ms,
+                     "row_err": chk["row_err"]})
+    return rows, launches
+
+
+def lithos_atoms(records, spec) -> list:
+    """The atom sweep's matmul cases against the simulator: each atom count
+    split by ``KernelAtomizer.split`` and each atom's ``CostModel`` latency
+    on every slice summed (the sweep runs atoms back to back on one
+    stream)."""
+    from repro_torch.core import types as T
+    from repro_torch.core.atomizer import KernelAtomizer
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.kernels.atoms import tile_count
+    cost = CostModel(spec)
+    rows, base = [], {}
+    for r in records:
+        if r["kernel"] != "atom_matmul":
+            continue
+        s = r["shape"]
+        M, N, K, bm = s["M"], s["N"], s["K"], s["block"]
+        esz = 4 if r["dtype"] == "float32" else 2
+        work = T.KernelWork(2.0 * M * N * K, float((M * K + K * N + M * N)
+                                                   * esz),
+                            tile_count(M, N, bm, bm))
+        task = T.KernelTask(r["case"], work)
+        atoms = KernelAtomizer().split(task, r["n_atoms"])
+        if len(atoms) != r["atoms"]:
+            fail(f"lithos_atoms {r['case']}: the atomizer splits "
+                 f"{r['n_atoms']} into {len(atoms)} atoms, the sweep ran "
+                 f"{r['atoms']}")
+        model_ms = sum(cost.latency(a.work, spec.n_slices)
+                       for a in atoms) * 1e3
+        ms = r["device_ms"] if r["device_ms"] is not None else float("nan")
+        guard_roofline(f"lithos_atoms {r['case']} n={r['n_atoms']}", ms,
+                       work.flops, work.bytes)
+        if r["n_atoms"] == 1:
+            base[r["case"]] = (ms, model_ms)
+        ms1, model1 = base[r["case"]]
+        extra = max(1, len(atoms) - 1)
+        rows.append({"case": r["case"], "dtype": r["dtype"],
+                     "n_atoms": r["n_atoms"], "atoms": len(atoms), "ms": ms,
+                     "model_ms": model_ms,
+                     "measured_over_model": ms / model_ms,
+                     "extra_ms_per_atom": (ms - ms1) / extra
+                     if len(atoms) > 1 else 0.0,
+                     "model_extra_ms_per_atom": (model_ms - model1) / extra
+                     if len(atoms) > 1 else 0.0})
+    return rows
+
+
+def _sim_mixes():
+    """The two mixes of ``scripts/parity_check.py``: a high-priority
+    olmo-1b ``fwd_infer`` (or continuous-batching) tenant with a best-effort
+    llama3-8b trainer, full-size configs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import workloads
+    from repro_torch.core.types import Priority as P
+    olmo, llama = get_config("olmo-1b"), get_config("llama3-8b")
+    be = workloads.AppSpec("be", llama, "train", priority=P.BEST_EFFORT,
+                           train_batch=2, train_seq=2048, fusion=8)
+    hp = workloads.AppSpec("hp", olmo, "fwd_infer", priority=P.HIGH,
+                           rps=20.0, prompt_mix=((128, 1.0),), batch=4,
+                           fusion=8)
+    cont = workloads.AppSpec("hp", olmo, "llm_continuous", priority=P.HIGH,
+                             rps=40.0, max_batch=4, decode_tokens=8,
+                             fusion=8, prompt_mix=((256, 0.7), (1024, 0.3)),
+                             seed=5)
+    return {"fwd_infer+train": [hp, be], "llm_continuous+train": [cont, be]}
+
+
+def lithos_sim(real: bool, spec) -> list:
+    """``evaluate`` on ``h100_like`` under both engines, records bit-equal."""
+    from repro_torch.core import types as T
+    from repro_torch.core.lithos import evaluate
+    horizon = 2.0 if real else 0.2
+    rows = []
+    for mix, apps in _sim_mixes().items():
+        for system in ("lithos", "mps"):
+            runs, secs = [], []
+            for engine in ("ref", "vec"):
+                T.reset_kernel_ids()
+                t0 = time.time()
+                runs.append(evaluate(system, spec, apps, horizon=horizon,
+                                     seed=0, engine=engine))
+                secs.append(time.time() - t0)
+            sig = [([(r.task.kid, r.task.queue_id, r.task.ordinal,
+                      r.t_submit, r.t_start, r.t_end, r.slices, r.freq)
+                     for r in res.records], res.energy,
+                    [(c.latencies, c.req_latencies, c.slice_seconds)
+                     for c in res.clients]) for res in runs]
+            if sig[0] != sig[1]:
+                fail(f"lithos_sim {system} {mix}: the two engines differ")
+            res = runs[0]
+            hp, be = res.client("hp"), res.client("be")
+            rows.append({"system": system, "mix": mix, "horizon": horizon,
+                         "records": len(res.records), "hp_p50_ms":
+                         hp.p(50) * 1e3, "hp_p99_ms": hp.p(99) * 1e3,
+                         "hp_completed": hp.n_completed,
+                         "be_completed": be.n_completed,
+                         "energy_j": res.energy,
+                         "engines_bit_equal": True,
+                         "host_s": {"ref": secs[0], "vec": secs[1]}})
+    return rows
+
+
+def lithos_phase(torch, dev, real: bool, smi: str, uuid,
+                 atom_records) -> None:
+    """The simulator's cost model (``DeviceSpec.h100_like``) held against
+    decode attention, flash attention and the atom matmul as measured on
+    the card, and the card's readings behind the profile's measured
+    constants.  Model against measured is a finding, not a gate; a time
+    below the whole card's roofline fails.  Each shape is held against the
+    plain version first; the launches printed are those of the timed runs."""
+    from repro_torch.core.types import DeviceSpec
+    spec = DeviceSpec.h100_like()
+    flush = (torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+             if real else None)
+    device = lithos_device(torch, dev, real, smi, uuid, flush)
+    emit("lithos_device", **device)
+    decode, k1 = lithos_decode(torch, dev, real, flush, spec)
+    prefill, k2 = lithos_prefill(torch, dev, real, spec)
+    del flush
+    if real and (k1 == 0 or k2 == 0):
+        fail(f"lithos: {k1} decode and {k2} flash attention launches: the "
+             f"timed runs did not go through the kernels")
+    emit("lithos_decode", nvidia_smi=smi, profile="h100_like",
+         arch="llama3-8b", dtype="bfloat16", l2="cold (flushed before every "
+         "launch)", launches=k1, rows=decode)
+    emit("lithos_prefill", nvidia_smi=smi, profile="h100_like",
+         arch="llama3-8b", dtype="bfloat16", causal=False, l2="warm",
+         launches=k2, rows=prefill)
+    emit("lithos_atoms", nvidia_smi=smi, profile="h100_like",
+         rows=lithos_atoms(atom_records, spec))
+    emit("lithos_sim", nvidia_smi=smi, profile="h100_like",
+         rows=lithos_sim(real, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -2036,7 +2422,8 @@ def main(argv) -> int:
 
     from repro_torch.kernels import build
 
-    smi = nvidia_smi_line() if real else "rehearsal on the CPU"
+    uuid = card_uuid(torch, dev) if real else None
+    smi = nvidia_smi_line(uuid) if real else "rehearsal on the CPU"
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
@@ -2096,7 +2483,10 @@ def main(argv) -> int:
     runs.append(checkpoint_phase(torch, dev, train_run, real=real))
     del train_run
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    launches["atom_matmul"] = atoms_phase(torch, dev, real)["atom_matmul"]
+    atom_launches, atom_records = atoms_phase(torch, dev, real)
+    launches["atom_matmul"] = atom_launches["atom_matmul"]
+    # the control plane's cost model against the kernels' times on the card
+    lithos_phase(torch, dev, real, smi, uuid, atom_records)
 
     if rehearse:
         print("chip_smoke: rehearsal finished; nothing was measured",

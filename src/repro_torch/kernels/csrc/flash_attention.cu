@@ -575,6 +575,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // tile space with it.
 extern "C" int flash_attention_block_q() { return BQ; }
 
+// The keys of a KV block a bf16 tile visits; the cost model pads to it.
+extern "C" int flash_attention_key_block() { return TBK; }
+
 // Thread blocks (one a tile) of the kernel for (D, dtype) that one SM holds
 // at once, or minus a CUDA error code (-1: a shape the kernel does not take).
 extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {

@@ -38,6 +38,9 @@ delta_launches = 0                # backward delta-pass launches
 # path.  Two thread blocks fit one SM on both paths up to head_dim 128 (bf16
 # 83 KB of Q and a 2-stage K/V ring; f32 75 KB of staging), one at 256.
 BLOCK_Q = 64
+# Keys of a KV block that a bf16 tile visits (``TBK`` of the .cu's wgmma
+# path, exported and checked at load); ``core/llm_costs.py`` pads to it.
+KEY_BLOCK = 64
 # The backward's tiles: query rows of a dQ tile and keys of a dK/dV tile,
 # each 64 rows for each of the two consumer warpgroups of its thread block.
 BWD_BLOCK_Q = 128
@@ -51,11 +54,13 @@ def _library():
     global _lib
     if _lib is None:
         lib = build.load("flash_attention")
-        lib.flash_attention_block_q.restype = ctypes.c_int
-        lib.flash_attention_block_q.argtypes = []
-        if lib.flash_attention_block_q() != BLOCK_Q:
-            raise RuntimeError("csrc/flash_attention.cu and ops.BLOCK_Q "
-                               "disagree on the q tile")
+        for fn in (lib.flash_attention_block_q, lib.flash_attention_key_block):
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
+        if (lib.flash_attention_block_q(),
+                lib.flash_attention_key_block()) != (BLOCK_Q, KEY_BLOCK):
+            raise RuntimeError("csrc/flash_attention.cu and ops.BLOCK_Q / "
+                               "KEY_BLOCK disagree on the q tile or KV block")
         lib.flash_attention_ctas_per_sm.restype = ctypes.c_int
         lib.flash_attention_ctas_per_sm.argtypes = [ctypes.c_int] * 2
         fn = lib.flash_attention_atom
