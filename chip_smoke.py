@@ -33,8 +33,15 @@ attention's fixed cost and the idle and loaded power draw beside the
 profile's constants; decode attention at every entry of llama3-8b's
 ``decode_cost_table``, flash attention at four prefill lengths and the
 sweep's matmul atom counts, each measured beside the model's latency and
-the roofline; ``evaluate`` of two mixes under both engines, bit-equal).
-Every phase prints one
+the roofline, and beside the latency of the op the simulator itself
+issues at that shape; ``evaluate`` of two mixes under both engines,
+bit-equal), drives the node and cluster tiers on ``h100_like``
+(``lithos_node``: the two mixes on a node of two devices under each router
+and on a cluster of two such nodes, both engines bit-equal) and the online
+control plane (``ctl``: the served llama3-8b deployment submitted through
+``launch.serve --ctl-state-dir`` beside a best-effort olmo-1b trainer,
+``python -m repro_torch.ctl daemon`` killed with SIGKILL and restarted until
+both finish).  Every phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -2190,10 +2197,13 @@ def lithos_decode(torch, dev, real: bool, flush, spec):
     on ``h100_like``: measured against the cost model and the roofline.
     Returns the rows and the timed runs' launches."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.costmodel import CostModel
     from repro_torch.core.llm_costs import decode_cost_table
+    from repro_torch.core.workloads import decode_attention_op
     from repro_torch.kernels.decode_attention import ops
     cfg = get_config("llama3-8b")
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cost = CostModel(spec)
     table = (decode_cost_table(cfg, spec) if real else
              decode_cost_table(cfg, spec, batches=(1, 2), kv_lens=(64, 130)))
     gen = torch.Generator(device=dev)
@@ -2220,11 +2230,17 @@ def lithos_decode(torch, dev, real: bool, flush, spec):
         floor = guard_roofline(f"lithos_decode B={B} S={S}", ms,
                                e.work.flops, e.work.bytes)
         model_ms = e.latency_s * 1e3
+        # the op the simulator itself issues for this decode step
+        op = decode_attention_op("attn", B, S, Hq, Hk, D)
+        sim_op_ms = cost.latency(op.work(), spec.n_slices) * 1e3
         rows.append({"B": B, "S": S, "nsplit": plan["nsplit"],
                      "n_blocks": e.work.n_blocks, "ms": ms,
                      "model_ms": model_ms, "roofline_ms": e.roofline_s * 1e3,
                      "whole_card_ms": floor, "measured_over_model":
-                     ms / model_ms, "max_abs_err": err})
+                     ms / model_ms, "sim_op_blocks": op.n_blocks,
+                     "sim_op_ms": sim_op_ms,
+                     "measured_over_sim_op": ms / sim_op_ms,
+                     "max_abs_err": err})
         del q, kc, vc
     return rows, launches
 
@@ -2237,6 +2253,7 @@ def lithos_prefill(torch, dev, real: bool, spec):
     from repro_torch.core.costmodel import CostModel
     from repro_torch.core.llm_costs import (flash_attention_work,
                                             roofline_terms)
+    from repro_torch.core.workloads import attention_op
     from repro_torch.kernels.flash_attention import ops
     cfg = get_config("llama3-8b")
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -2263,11 +2280,16 @@ def lithos_prefill(torch, dev, real: bool, spec):
         launches += ops.launches - before
         floor = guard_roofline(f"lithos_prefill S={S}", ms, w.flops, w.bytes)
         model_ms = cost.latency(w, spec.n_slices) * 1e3
+        # the op the simulator itself issues for this prefill
+        op = attention_op("attn", 1, S, S, Hq, Hk, D, causal=False)
+        sim_op_ms = cost.latency(op.work(), spec.n_slices) * 1e3
         rows.append({"B": 1, "Sq": S, "Skv": S, "tiles": tiles, "ms": ms,
                      "model_ms": model_ms,
                      "roofline_ms": roofline_terms(w, spec).bound_time * 1e3,
                      "whole_card_ms": floor,
                      "measured_over_model": ms / model_ms,
+                     "sim_op_blocks": op.n_blocks, "sim_op_ms": sim_op_ms,
+                     "measured_over_sim_op": ms / sim_op_ms,
                      "row_err": chk["row_err"]})
     return rows, launches
 
@@ -2276,10 +2298,12 @@ def lithos_atoms(records, spec) -> list:
     """The atom sweep's matmul cases against the simulator: each atom count
     split by ``KernelAtomizer.split`` and each atom's ``CostModel`` latency
     on every slice summed (the sweep runs atoms back to back on one
-    stream)."""
+    stream), for the kernel's own tiles (``model_ms``) and for the op the
+    simulator issues, ``workloads.matmul_op`` (``sim_op_ms``)."""
     from repro_torch.core import types as T
     from repro_torch.core.atomizer import KernelAtomizer
     from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.workloads import matmul_op
     from repro_torch.kernels.atoms import tile_count
     cost = CostModel(spec)
     rows, base = [], {}
@@ -2300,6 +2324,11 @@ def lithos_atoms(records, spec) -> list:
                  f"{r['atoms']}")
         model_ms = sum(cost.latency(a.work, spec.n_slices)
                        for a in atoms) * 1e3
+        op = matmul_op(r["case"], M, N, K, dsize=esz)
+        sim_atoms = KernelAtomizer().split(T.KernelTask(r["case"], op.work()),
+                                           r["n_atoms"])
+        sim_op_ms = sum(cost.latency(a.work, spec.n_slices)
+                        for a in sim_atoms) * 1e3
         ms = r["device_ms"] if r["device_ms"] is not None else float("nan")
         guard_roofline(f"lithos_atoms {r['case']} n={r['n_atoms']}", ms,
                        work.flops, work.bytes)
@@ -2311,6 +2340,9 @@ def lithos_atoms(records, spec) -> list:
                      "n_atoms": r["n_atoms"], "atoms": len(atoms), "ms": ms,
                      "model_ms": model_ms,
                      "measured_over_model": ms / model_ms,
+                     "sim_op_blocks": op.n_blocks,
+                     "sim_op_atoms": len(sim_atoms), "sim_op_ms": sim_op_ms,
+                     "measured_over_sim_op": ms / sim_op_ms,
                      "extra_ms_per_atom": (ms - ms1) / extra
                      if len(atoms) > 1 else 0.0,
                      "model_extra_ms_per_atom": (model_ms - model1) / extra
@@ -2338,6 +2370,15 @@ def _sim_mixes():
     return {"fwd_infer+train": [hp, be], "llm_continuous+train": [cont, be]}
 
 
+def _sim_signature(res) -> tuple:
+    """A simulation's records, energy and clients, compared with ``==``
+    between the two engines."""
+    return ([(r.task.kid, r.task.queue_id, r.task.ordinal, r.t_submit,
+              r.t_start, r.t_end, r.slices, r.freq) for r in res.records],
+            res.energy, [(c.cid, c.latencies, c.req_latencies,
+                          c.slice_seconds) for c in res.clients])
+
+
 def lithos_sim(real: bool, spec) -> list:
     """``evaluate`` on ``h100_like`` under both engines, records bit-equal."""
     from repro_torch.core import types as T
@@ -2353,12 +2394,7 @@ def lithos_sim(real: bool, spec) -> list:
                 runs.append(evaluate(system, spec, apps, horizon=horizon,
                                      seed=0, engine=engine))
                 secs.append(time.time() - t0)
-            sig = [([(r.task.kid, r.task.queue_id, r.task.ordinal,
-                      r.t_submit, r.t_start, r.t_end, r.slices, r.freq)
-                     for r in res.records], res.energy,
-                    [(c.latencies, c.req_latencies, c.slice_seconds)
-                     for c in res.clients]) for res in runs]
-            if sig[0] != sig[1]:
+            if _sim_signature(runs[0]) != _sim_signature(runs[1]):
                 fail(f"lithos_sim {system} {mix}: the two engines differ")
             res = runs[0]
             hp, be = res.client("hp"), res.client("be")
@@ -2403,6 +2439,152 @@ def lithos_phase(torch, dev, real: bool, smi: str, uuid,
          rows=lithos_atoms(atom_records, spec))
     emit("lithos_sim", nvidia_smi=smi, profile="h100_like",
          rows=lithos_sim(real, spec))
+
+
+def lithos_node(real: bool) -> list:
+    """The node and cluster tiers on ``h100_like``: ``evaluate`` of the two
+    mixes on a node of two devices under each router, migration on, and on
+    a cluster of two such nodes (its own ``frag_aware`` router, migration on
+    in both tiers); both engines, bit-equal, or the phase fails.  Host code
+    only: no kernel runs."""
+    from repro_torch.core import types as T
+    from repro_torch.core.hierarchy import ROUTERS
+    from repro_torch.core.lithos import evaluate
+    spec = T.DeviceSpec.h100_like()
+    node = T.NodeSpec.uniform(2, spec)
+    migrate = T.NodeConfig(migration=True)
+    runs = [("node", node, r, {"node_config": migrate}) for r in ROUTERS]
+    runs.append(("cluster", T.ClusterSpec.uniform(2, node), "frag_aware",
+                 {"cluster_config": T.ClusterConfig(migration=True,
+                                                    node_config=migrate)}))
+    horizon = 2.0 if real else 0.2
+    rows = []
+    for mix, apps in _sim_mixes().items():
+        for tier, device, router, kw in runs:
+            res, secs = [], {}
+            for engine in ("ref", "vec"):
+                T.reset_kernel_ids()
+                t0 = time.time()
+                res.append(evaluate("lithos", device, apps, horizon=horizon,
+                                    seed=0, engine=engine, router=router,
+                                    **kw))
+                secs[engine] = time.time() - t0
+            if (_sim_signature(res[0]) != _sim_signature(res[1])
+                    or res[0].migrations != res[1].migrations):
+                fail(f"lithos_node {tier} {router} {mix}: the two engines "
+                     f"differ")
+            r = res[0]
+            hp, be = r.client("hp"), r.client("be")
+            rows.append({"tier": tier, "router": router, "mix": mix,
+                         "devices": device.n_devices, "horizon": horizon,
+                         "placement": r.placement,
+                         "records": len(r.records),
+                         "hp_p50_ms": hp.p(50) * 1e3,
+                         "hp_p99_ms": hp.p(99) * 1e3,
+                         "hp_completed": hp.n_completed,
+                         "be_completed": be.n_completed,
+                         "energy_j": r.energy, "migrations": r.migrations,
+                         "engines_bit_equal": True, "host_s": secs})
+    return rows
+
+
+# each wait of the ``ctl`` phase: the daemon's first admission, and its
+# restart's run to idle (full-size llama3-8b and olmo-1b tenants take ~20 s
+# of host time on one core)
+CTL_WAIT_S = 180
+
+
+def ctl_phase(real: bool) -> dict:
+    """The online control plane through its entry points: the serve phase's
+    full-size llama3-8b deployment (4 slots, 16 new tokens) submitted by
+    ``launch.serve --ctl-state-dir`` as a high-priority tenant, a
+    best-effort olmo-1b trainer beside it, ``python -m repro_torch.ctl
+    daemon --device h100`` killed with SIGKILL while both run, and restarted
+    until idle.  Fails if a job ends ``failed`` or is not terminal, if the
+    restart recovers nothing, or if any wait runs out.  Host code only."""
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.ctl import store
+    from repro_torch.ctl.state import JobState
+    from repro_torch.launch.serve import main as serve_main
+    d = tempfile.mkdtemp(prefix="ctl-")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    daemon = [sys.executable, "-m", "repro_torch.ctl", "daemon",
+              "--state-dir", d, "--device", "h100"]
+    try:
+        argv = ["--arch", "llama3-8b", "--max-slots", "4", "--max-new", "16",
+                "--priority", "hp", "--ctl-state-dir", d]
+        if not real:
+            argv += ["--reduced", "--duration", "0.5"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve_main(argv)
+        serve_id = out.getvalue().strip()
+        train_id = store.request_submit(d, {
+            "kind": "train", "arch": "olmo-1b", "reduced": not real,
+            "priority": "be", "duration": 5.0 if real else 0.4,
+            "name": "olmo-1b-train"})
+        ids = {serve_id: "llama3-8b-serve", train_id: "olmo-1b-train"}
+        t0 = time.time()
+        proc = subprocess.Popen(daemon, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            while True:
+                states = {j: s.state for j, s in store.replay(d).items()}
+                if (set(states) == set(ids) and all(
+                        s is JobState.RUNNING for s in states.values())):
+                    break
+                if time.time() - t0 > CTL_WAIT_S or proc.poll() is not None:
+                    fail(f"ctl: the daemon did not run both jobs within "
+                         f"{CTL_WAIT_S} s: {states}")
+                time.sleep(0.1)
+        finally:
+            proc.kill()
+            proc.wait(timeout=30)
+        killed_after_s = time.time() - t0
+        hb = store.read_heartbeat(d)
+        if hb is None or hb["alive"]:
+            fail(f"ctl: after SIGKILL the heartbeat reads {hb}")
+        t1 = time.time()
+        try:
+            r = subprocess.run(daemon + ["--exit-when-idle", "--max-wall",
+                                         str(CTL_WAIT_S)],
+                               env=env, capture_output=True, text=True,
+                               timeout=CTL_WAIT_S + 60)
+        except subprocess.TimeoutExpired:
+            fail(f"ctl: the restarted daemon ran past {CTL_WAIT_S + 60} s")
+        if r.returncode != 0:
+            fail(f"ctl: the restarted daemon exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        restart_s = time.time() - t1
+        jobs = store.replay(d)
+        rows = {}
+        for jid, name in ids.items():
+            j = jobs.get(jid)
+            if j is None or not j.terminal:
+                fail(f"ctl: {name} is not terminal after the restart "
+                     f"(the wait ran out): {j and j.state}")
+            if j.state is JobState.FAILED:
+                fail(f"ctl: {name} failed: {j.error}")
+            if j.recoveries < 1:
+                fail(f"ctl: {name} was running at the SIGKILL but was not "
+                     f"recovered")
+            res = j.result
+            rows[name] = {"job_id": jid, "state": j.state.value,
+                          "recoveries": j.recoveries,
+                          "device": j.device, "granted": j.granted_slices,
+                          "n_completed": res.get("n_completed"),
+                          "p50_ms": res.get("p50_ms"),
+                          "p95_ms": res.get("p95_ms"),
+                          "slice_seconds": res.get("slice_seconds"),
+                          "sim_seconds": res.get("sim_seconds")}
+        n_records = len(store._read_records(os.path.join(d, store.JOURNAL)))
+        return {"jobs": rows, "journal_records": n_records,
+                "killed_after_s": killed_after_s, "restart_s": restart_s,
+                "restart_stdout": r.stdout.strip()}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2487,6 +2669,14 @@ def main(argv) -> int:
     launches["atom_matmul"] = atom_launches["atom_matmul"]
     # the control plane's cost model against the kernels' times on the card
     lithos_phase(torch, dev, real, smi, uuid, atom_records)
+    # the node, cluster and online tiers: host code that schedules
+    # descriptions of kernels, so they launch none
+    reset_counts()
+    emit("lithos_node", nvidia_smi=smi, profile="h100_like",
+         rows=lithos_node(real))
+    emit("ctl", nvidia_smi=smi, profile="h100", **ctl_phase(real))
+    if any(read_counts().values()):
+        fail(f"lithos_node / ctl launched kernels: {read_counts()}")
 
     if rehearse:
         print("chip_smoke: rehearsal finished; nothing was measured",

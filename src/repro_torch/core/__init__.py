@@ -6,8 +6,8 @@ Layers (DESIGN.md §2-3, §5):
   control plane   — scheduler/atomizer/rightsizer/DVFS/predictor (here),
                     backed by the SliceMap resource subsystem (slices.py)
   timing plane    — calibrated discrete-event simulator (simulator.py)
-  node layer      — multi-device placement/routing over NodeSpec: not yet
-                    in the port (ROADMAP A12b); ``evaluate`` refuses one
+  node layer      — multi-device placement/routing (node.py) over NodeSpec,
+                    and the cluster tier (cluster.py) over ClusterSpec
 """
 from repro_torch.core.types import (CompletionRecord, DeviceSpec, KernelTask,
                                     KernelWork, NodeSpec, Priority, Quota)

@@ -123,12 +123,18 @@ def evaluate(system: str, device, apps: list[AppSpec], *,
              faults=None):
     """Run one system over one workload mix.
 
-    ``device`` is a :class:`DeviceSpec` (returns a :class:`SimResult`).  A
-    :class:`NodeSpec` or :class:`ClusterSpec` raises ``NotImplementedError``:
-    the node and cluster tiers are ROADMAP A12b, and a multi-device spec is
-    never run as one device.  ``node_config``, ``cluster_config`` and
-    ``placement`` belong to those tiers and raise ``ValueError`` with a
-    DeviceSpec; ``router`` is not read.
+    ``device`` may be a :class:`DeviceSpec` (single-device path, returns a
+    :class:`SimResult`), a :class:`NodeSpec` (multi-device path: the node
+    layer routes tenants across devices with ``router`` and returns a
+    ``NodeResult``; a 1-device node reproduces the DeviceSpec path
+    bit-for-bit), or a :class:`ClusterSpec` (the cluster tier routes
+    tenants across nodes — ``router`` additionally accepts ``frag_aware``
+    — and returns a ``ClusterResult``; a 1-node cluster reproduces the
+    NodeSpec path bit-for-bit).  ``node_config`` tunes the node-level
+    lending protocol (cross-device TPC stealing); ``cluster_config`` the
+    cluster tier (cross-node stealing + power cap, with its own
+    ``node_config`` field for the member nodes); ``placement`` pins tenants
+    to devices (or (node, device) pairs), bypassing the routers.
 
     ``engine`` picks the simulator core ("ref" | "vec"; default from
     :func:`default_engine`) — results are bit-for-bit identical, "vec" is
@@ -140,13 +146,28 @@ def evaluate(system: str, device, apps: list[AppSpec], *,
     ``faults=None`` is bit-for-bit the fault-free run."""
     if engine is None:
         engine = default_engine()
-    if isinstance(device, (ClusterSpec, NodeSpec)):
-        raise NotImplementedError(
-            f"evaluate over a {type(device).__name__}: the node and cluster "
-            f"tiers (core/hierarchy.py, node.py, cluster.py) are not yet in "
-            f"the port (ROADMAP A12b); pass a DeviceSpec")
+    if isinstance(device, ClusterSpec):
+        from repro_torch.core.cluster import evaluate_cluster
+        if node_config is not None:
+            raise ValueError("pass node_config for a ClusterSpec via "
+                             "cluster_config.node_config")
+        return evaluate_cluster(system, device, apps, horizon=horizon,
+                                seed=seed, lithos_config=lithos_config,
+                                router=router,
+                                cluster_config=cluster_config,
+                                placement=placement, engine=engine,
+                                collect_records=collect_records,
+                                faults=faults)
     if cluster_config is not None:
         raise ValueError("cluster_config requires a ClusterSpec")
+    if isinstance(device, NodeSpec):
+        from repro_torch.core.node import evaluate_node
+        return evaluate_node(system, device, apps, horizon=horizon,
+                             seed=seed, lithos_config=lithos_config,
+                             router=router, node_config=node_config,
+                             placement=placement, engine=engine,
+                             collect_records=collect_records,
+                             faults=faults)
     if node_config is not None or placement is not None:
         raise ValueError("node_config/placement require a NodeSpec — a bare "
                          "DeviceSpec has no node layer to apply them to")

@@ -27,9 +27,11 @@ The geometry:
   q tiles, one thread block each, visiting keys in blocks of
   ``ops.KEY_BLOCK``; the full square (non-causal), as the reference counts.
 
-Nothing here runs on the default scheduling path: seeding is opt-in
-(benchmarks and the serving control plane call it), so legacy scenarios
-are bit-for-bit unchanged.
+Nothing here runs on any scheduling path: no module, bench or script of
+the port calls ``decode_cost_table`` or ``seed_decode_predictor``; only the
+tests and ``chip_smoke.py`` do.  The simulator, the node and cluster tiers
+and the control-plane daemon charge from ``core/workloads.py``'s ops, so
+every scenario is bit-for-bit the reference's.
 """
 from __future__ import annotations
 

@@ -6,9 +6,14 @@ config: dense, MoE (qwen2-moe-a2.7b, grok-1-314b), hybrid RG-LRU + local
 attention (recurrentgemma-9b), xLSTM (xlstm-1.3b) and the VLM backbone
 (llava-next-34b, from token prompts, as the reference's server does).  The
 encoder-decoder whisper-small is served through
-``repro_torch.models.registry.serve_prefill / serve_decode``.  Submitting the
-deployment to the online control plane (``--ctl-state-dir``) is not ported
-yet.
+``repro_torch.models.registry.serve_prefill / serve_decode``.
+
+With ``--ctl-state-dir`` the launcher does not serve locally at all: it is
+the first client of the online control plane (:mod:`repro_torch.ctl`), and
+the invocation becomes a *job submission* — the serve deployment turns into
+a tenant (SLO class + slice quota) that the daemon admits onto a device and
+runs under multi-tenancy, survivable across daemon crashes.  That path
+imports neither ``torch`` nor the model.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
@@ -18,6 +23,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --max-slots 2 --max-len 4608 \
         --min-prompt 2100 --requests 3 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+        --ctl-state-dir /tmp/ctl --rps 40 --duration 5 --quota 8 --slo 0.25
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ def serve(cfg, *, n_requests: int = 16, max_slots: int = 4,
     if not 1 <= min_prompt < max_len // 2:
         raise ValueError(f"min_prompt {min_prompt} outside [1, "
                          f"{max_len // 2})")
+    # deferred: the --ctl-state-dir submit path must not pay (or require)
+    # the torch import just to drop a spec file in the daemon's inbox
     from repro_torch.serve.engine import ServeConfig, SlotServer
 
     rng = np.random.default_rng(seed)
@@ -61,6 +70,21 @@ def serve(cfg, *, n_requests: int = 16, max_slots: int = 4,
     return done, lats
 
 
+def submit_to_ctl(args) -> str:
+    """Express this serve deployment as a control-plane job: an open-loop
+    ``serve`` tenant with the CLI's SLO class and slice quota.  Returns the
+    job id; the daemon owning ``--ctl-state-dir`` admits and runs it."""
+    from repro_torch.ctl import store
+
+    spec = {"kind": "serve", "arch": args.arch, "reduced": args.reduced,
+            "name": args.name or f"serve-{args.arch}",
+            "priority": args.priority, "quota_slices": args.quota,
+            "rps": args.rps, "duration": args.duration,
+            "slo_latency": args.slo, "batch": args.max_slots,
+            "decode_tokens": args.max_new, "seed": args.seed}
+    return store.request_submit(args.ctl_state_dir, spec)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="olmo-1b")
@@ -75,14 +99,23 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default: cuda (fails without a GPU)")
-    ap.add_argument("--ctl-state-dir", default=None,
-                    help="not ported yet: submit this deployment as a "
-                         "control-plane job instead of serving locally")
+    ctl = ap.add_argument_group("control plane (submit instead of serving)")
+    ctl.add_argument("--ctl-state-dir", default=None,
+                     help="submit this deployment as a ctl job instead of "
+                          "serving locally")
+    ctl.add_argument("--name", default=None)
+    ctl.add_argument("--priority", default="hp", choices=["hp", "be"])
+    ctl.add_argument("--quota", type=int, default=0,
+                     help="pinned TPC slices for the tenant")
+    ctl.add_argument("--rps", type=float, default=20.0)
+    ctl.add_argument("--duration", type=float, default=5.0,
+                     help="serve window, simulated seconds")
+    ctl.add_argument("--slo", type=float, default=0.25,
+                     help="SLO latency target, seconds")
     args = ap.parse_args(argv)
     if args.ctl_state_dir is not None:
-        raise SystemExit("--ctl-state-dir: the control plane is not ported "
-                         "yet (ROADMAP A12); use repro.launch.serve to "
-                         "submit a job")
+        print(submit_to_ctl(args))
+        return
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

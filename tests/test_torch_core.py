@@ -167,15 +167,46 @@ def test_evaluate_entry_point_equals_reference_on_h100(system):
 
 
 def test_evaluate_refuses_node_and_cluster_specs():
-    dev = p_types.DeviceSpec.h100_like()
-    node = p_types.NodeSpec.uniform(2, dev)
+    """``evaluate``'s node and cluster arms equal the reference's on
+    ``h100_like``, and it refuses what the reference refuses, in the same
+    order: ``node_config`` on a ClusterSpec, ``cluster_config`` without
+    one, ``node_config`` or ``placement`` on a bare DeviceSpec."""
+    def specs(pkg, dev):
+        node = pkg.types.NodeSpec.uniform(2, dev)
+        return node, pkg.types.ClusterSpec.uniform(2, node)
+
+    r_dev, p_dev = devices("h100_like")
+    for i in (0, 1):
+        sigs = []
+        for pkg, dev in ((REF, r_dev), (PORT, p_dev)):
+            pkg.types.reset_kernel_ids()
+            res = pkg.lithos.evaluate("lithos", specs(pkg, dev)[i],
+                                      [hp_app(pkg), be_train(pkg)],
+                                      horizon=0.3, seed=0)
+            sigs.append((signature(res, None), list(res.placement),
+                         res.migrations))
+        assert sigs[1] == sigs[0]
+        assert len(sigs[0][0]["records"]) > 0
+    node, cluster = specs(PORT, p_dev)
     apps = [hp_app(PORT), be_train(PORT)]
-    for spec in (node, p_types.ClusterSpec.uniform(1, node)):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            p_lithos.evaluate("lithos", spec, apps, horizon=0.1)
-    with pytest.raises(ValueError):
-        p_lithos.evaluate("lithos", dev, apps, horizon=0.1,
-                          node_config=p_types.NodeConfig())
+    for pkg_types, lithos, (n, c), dev in (
+            (r_types, r_lithos, specs(REF, r_dev), r_dev),
+            (p_types, p_lithos, (node, cluster), p_dev)):
+        with pytest.raises(ValueError, match="cluster_config.node_config"):
+            lithos.evaluate("lithos", c, apps, horizon=0.1,
+                            node_config=pkg_types.NodeConfig(),
+                            cluster_config=pkg_types.ClusterConfig())
+        for spec in (n, dev):
+            with pytest.raises(ValueError, match="requires a ClusterSpec"):
+                lithos.evaluate("lithos", spec, apps, horizon=0.1,
+                                cluster_config=pkg_types.ClusterConfig(),
+                                placement=[0, 0])
+        with pytest.raises(ValueError, match="require a NodeSpec"):
+            lithos.evaluate("lithos", dev, apps, horizon=0.1,
+                            node_config=pkg_types.NodeConfig())
+        with pytest.raises(ValueError, match="require a NodeSpec"):
+            lithos.evaluate("lithos", dev, apps, horizon=0.1,
+                            placement=[0, 0])
 
 
 def test_default_engine_reads_the_same_variable(monkeypatch):

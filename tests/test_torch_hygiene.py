@@ -157,6 +157,8 @@ def test_import_leaves_jax_and_triton_out():
         "import repro_torch.checkpoint, repro_torch.distributed\n"
         "import repro_torch.launch.mesh, repro_torch.launch.shardings\n"
         "import repro_torch.models.sharding\n"
+        "import repro_torch.core.cluster, repro_torch.ctl.cli\n"
+        "import repro_torch.ctl.daemon\n"
         "import torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton', 'ml_dtypes')]\n"
@@ -193,10 +195,34 @@ def test_cli_defaults_to_gpu_and_takes_device_cpu():
     assert "[serve] 2 requests" in out.stdout and "on cpu" in out.stdout
 
 
-def test_cli_refuses_the_control_plane_flag():
-    out = _run("from repro_torch.launch.serve import main\n"
-               "main(['--ctl-state-dir', 'state', '--device', 'cpu'])\n")
-    assert out.returncode != 0 and "not ported" in out.stderr
+CTL_ARGV = ["--arch", "llama3-8b", "--max-slots", "4", "--max-new", "16",
+            "--priority", "hp", "--quota", "8", "--slo", "0.2"]
+
+
+def test_cli_refuses_the_control_plane_flag(tmp_path):
+    """Under ``--ctl-state-dir`` the serving CLI refuses to serve: it drops
+    the deployment's spec in the daemon's inbox and prints the job id,
+    importing neither ``torch`` nor JAX.  The spec equals the one the
+    reference's ``repro.launch.serve`` submits for the same arguments."""
+    from repro.launch.serve import main as ref_main
+    from repro_torch.ctl import store
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    argv = CTL_ARGV + ["--ctl-state-dir", str(port_dir)]
+    out = _run("import sys\n"
+               "from repro_torch.launch.serve import main\n"
+               f"main({argv!r})\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('torch', 'jax', 'jaxlib', 'repro', 'triton')]\n"
+               "assert not bad, bad\n")
+    assert out.returncode == 0, out.stderr
+    jid = out.stdout.strip()
+    ref_main(CTL_ARGV + ["--ctl-state-dir", str(ref_dir)])
+    got, = store.scan_inbox(str(port_dir))[0]
+    want, = store.scan_inbox(str(ref_dir))[0]
+    assert got["job_id"] == jid and jid.startswith("job-")
+    assert got["spec"] == want["spec"]
+    assert list(got["spec"]) == list(want["spec"])
+    assert got["spec"]["reduced"] is False and got["spec"]["batch"] == 4
 
 
 def test_wrapper_on_a_non_cpu_tensor_never_takes_the_plain_version():
