@@ -1855,7 +1855,9 @@ def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
         del grads
     if real:
         torch.cuda.empty_cache()
-    return launches, dict(state=state, cfg=cfg, tc=tc, batch=batch, seq=seq)
+    return launches, dict(state=state, cfg=cfg, tc=tc, batch=batch, seq=seq,
+                          losses=losses, median_step_ms=med * 1e3,
+                          step_flops=step_flops, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2011,6 +2013,233 @@ def checkpoint_phase(torch, dev, run: dict, *, real: bool):
     if real:
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the mesh path: the same training over a DeviceMesh, the state as DTensors
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _max_rel(a, b) -> float:
+    return max((abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b)),
+               default=0.0)
+
+
+def mesh_phase(torch, dev, run: dict, *, real: bool) -> dict:
+    """The ``train`` phase again through ``launch.train.train(mesh=...)``:
+    a one-rank process group (NCCL on the card, gloo in a rehearsal) and a
+    (1, 1) ("data", "model") ``DeviceMesh``; every leaf of the state a
+    DTensor, the batches from ``sharded_batches``, the attention kernels on
+    each rank's shard through ``kernels/sharded.local_attention``.  Same
+    config, seed, batches, steps and ``TrainConfig``.  Counts set to 0 just
+    before and read just after: K2, K2-bwd and delta launches equal to the
+    train phase's.  Losses equal to the train phase's, bit for bit or,
+    where DTensor's dispatch reorders an operation, within 1e-5 relative
+    (the largest relative difference is printed).  Median ms a step against
+    the train phase's (DTensor's host cost), and one more step profiled (its
+    idle share).  The state saved at the last step restores onto the mesh
+    through ``sharding_fn`` (placements), every leaf bit-equal.  The group
+    is destroyed at the end."""
+    import shutil
+    import statistics
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.sharded import _flatten
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import sharded_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (state_placements, state_template,
+                                          train)
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.train.step import make_train_step
+    cfg, tc, batch, seq = run["cfg"], run["tc"], run["batch"], run["seq"]
+    steps = len(run["losses"])
+    dist.init_process_group("nccl" if real else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        step_s, last = [], [0.0]
+
+        def on_step(step, metrics):
+            if real:
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - last[0])
+            last[0] = now
+
+        reset_counts()
+        last[0] = t0 = time.perf_counter()
+        state, losses = train(cfg, steps=steps, batch=batch, seq=seq, tc=tc,
+                              seed=0, device=dev, verbose=False, mesh=mesh,
+                              on_step=on_step)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        want = run["launches"]
+        if launches != want:
+            fail(f"mesh: launch counts {launches}, the train phase's {want}")
+        bit_equal = losses == run["losses"]
+        rel = _max_rel(losses, run["losses"])
+        if not bit_equal and rel > 1e-5:
+            fail(f"mesh: losses {losses} against the train phase's "
+                 f"{run['losses']} (max relative difference {rel})")
+        leaves = _flatten(state)
+        if not all(isinstance(t, DTensor) for t in leaves.values()):
+            fail("mesh: the trained state is not all DTensors")
+        med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+
+        profile = None
+        if real:
+            _, step_fn = make_train_step(cfg, tc, device=dev)
+            b = next(sharded_batches(cfg, ShapeConfig("train", seq, batch,
+                                                      "train"),
+                                     mesh, seed=0, device=dev))
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+
+            def one_step():
+                with use_mesh(mesh, dev.type), implicit_replication():
+                    step_fn(state, b)
+                torch.cuda.synchronize()
+
+            profile = profile_windows(torch, {"train_step": one_step})[
+                "train_step"]
+            del b
+
+        d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        try:
+            mgr = CheckpointManager(d)
+            mgr.save(state, steps)
+            mgr.wait_all()
+            template = state_template(cfg, tc)
+            pl = state_placements(cfg, mesh, template)
+            t1 = time.perf_counter()
+            restored = mgr.restore(template, device=dev, sharding_fn=pl.get,
+                                   device_mesh=mesh.device_mesh(dev.type))
+            restore_s = time.perf_counter() - t1
+            got = _flatten(restored)
+            restored_equal = list(got) == list(leaves) and all(
+                isinstance(got[k], DTensor)
+                and got[k].placements == leaves[k].placements
+                and torch.equal(got[k].to_local(), leaves[k].to_local())
+                for k in leaves)
+            del restored, got
+        finally:
+            shutil.rmtree(d)
+        if not restored_equal:
+            fail("mesh: the state restored onto the mesh through sharding_fn "
+                 "is not bit-equal to the trained one")
+        del state, leaves
+    finally:
+        dist.destroy_process_group()
+    emit("mesh", arch=cfg.name, full_size=real, mesh={"data": 1, "model": 1},
+         backend="nccl" if real else "gloo", steps=steps, batch=batch,
+         seq=seq, n_micro=tc.n_micro, losses=losses,
+         train_losses=run["losses"], losses_bit_equal=bit_equal,
+         losses_max_rel_diff=rel, seconds=seconds,
+         step_ms=[x * 1e3 for x in step_s], median_step_ms=med * 1e3,
+         train_median_step_ms=run["median_step_ms"],
+         dtensor_host_ms=med * 1e3 - run["median_step_ms"],
+         profile=profile, launches=launches, expected_launches=want,
+         restored_bit_equal=restored_equal, restore_s=restore_s)
+    if real:
+        torch.cuda.empty_cache()
+    return {"losses": losses, "median_step_ms": med * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# the dry-run: a step traced on meta tensors over a fake process group
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("llama3-8b", "decode_32k"))
+# the train phase's own shape on one rank, in a process of its own (one
+# process holds one default group)
+DRYRUN_OWN = """
+import json, sys
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun
+from repro_torch.train.step import TrainConfig
+a = json.loads(sys.argv[1])
+cfg = get_config("olmo-1b")
+if not a["real"]:
+    cfg = cfg.reduced()
+tc = TrainConfig(remat=a["remat"], n_micro=a["n_micro"],
+                 moment_dtype=a["moment_dtype"])
+res = dryrun.run_cell("olmo-1b", "train_phase", cfg=cfg, mesh_name="d1m1",
+                      shape=ShapeConfig("train_phase", a["seq"], a["batch"],
+                                        "train"), tc=tc)
+print(json.dumps(res))
+"""
+
+
+def _dryrun_row(res: dict) -> dict:
+    r = res["roofline"]
+    return {"flops_per_device": res["cost"]["flops_per_device"],
+            "dot_flops_per_device": res["cost"]["dot_flops_per_device"],
+            "bytes_per_device": res["cost"]["bytes_per_device"],
+            "collective_bytes": res["collectives"], "memory": res["memory"],
+            "kernel_calls": res["cost"]["kernel_calls"],
+            "roofline": {k: r[k] for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                "useful_ratio", "roofline_fraction")},
+            "t_lower_s": res["t_lower_s"]}
+
+
+def dryrun_phase(run: dict, *, real: bool) -> None:
+    """``python -m repro_torch.launch.dryrun`` for ``DRYRUN_CELLS`` on
+    ``pod16x16`` (a fake group of 256 ranks, tensors on ``meta``), each in a
+    subprocess, then the train phase's own shape on one rank (olmo-1b, its
+    batch, sequence, microbatches and remat): its traced FLOPs beside the
+    train phase's ``step_flops``, and its compute term beside the measured
+    median step (the measured step's fraction of its traced compute bound).
+    Nothing here runs on the card."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = {}
+    t0 = time.time()
+    for arch, shape in DRYRUN_CELLS:
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape, "--force"],
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        path = os.path.join(ROOT, "reports", "dryrun_torch", "pod16x16",
+                            f"{arch}__{shape}.json")
+        if r.returncode != 0 or not os.path.exists(path):
+            fail(f"dryrun: {arch} x {shape} exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        with open(path) as f:
+            res = json.load(f)
+        if res["status"] != "ok":
+            fail(f"dryrun: {arch} x {shape}: {res.get('error')}")
+        out[f"{arch}__{shape}"] = _dryrun_row(res)
+    tc = run["tc"]
+    own = dict(real=real, batch=run["batch"], seq=run["seq"],
+               n_micro=tc.n_micro, remat=tc.remat,
+               moment_dtype=tc.moment_dtype)
+    r = subprocess.run([sys.executable, "-c", DRYRUN_OWN, json.dumps(own)],
+                       env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"dryrun: the train phase's shape exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    flops = res["cost"]["flops_per_device"]
+    t_compute_ms = res["roofline"]["t_compute_s"] * 1e3
+    emit("dryrun", mesh="pod16x16", cells=out, seconds=time.time() - t0,
+         train_phase_shape={
+             **_dryrun_row(res), "train_step_flops": run["step_flops"],
+             "flops_over_step_flops": flops / run["step_flops"],
+             "t_compute_ms": t_compute_ms,
+             "measured_median_step_ms": run["median_step_ms"],
+             "compute_bound_fraction": t_compute_ms / run["median_step_ms"],
+             "hw": "H100 data sheet (roofline/analysis.py), not measured"})
 
 
 # ---------------------------------------------------------------------------
@@ -2663,8 +2892,13 @@ def main(argv) -> int:
     runs.append(counts)
     # its final state checkpointed, restored and resumed
     runs.append(checkpoint_phase(torch, dev, train_run, real=real))
-    del train_run
+    del train_run["state"]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    # the same training over a one-rank DeviceMesh (DTensor state), and the
+    # dry-run of full-size cells on a fake 256-rank mesh
+    mesh_phase(torch, dev, train_run, real=real)
+    dryrun_phase(train_run, real=real)
+    del train_run
     atom_launches, atom_records = atoms_phase(torch, dev, real)
     launches["atom_matmul"] = atom_launches["atom_matmul"]
     # the control plane's cost model against the kernels' times on the card

@@ -26,7 +26,12 @@ restores in the other:
 * **Elastic restore**: the manifest holds logical arrays only.  Restore
   takes keys, shapes and dtypes from a template (its leaves may lie on the
   ``meta`` device) and places each leaf where ``sharding_fn(key)`` says,
-  else on ``device``.
+  else on ``device``: a device, or the placements of a DTensor over
+  ``device_mesh`` (each rank reads the logical array and keeps its part,
+  so a state saved on one mesh restores onto another).
+* **DTensor state** (training over a mesh of ranks): every rank gathers
+  each leaf with ``full_tensor`` (a collective call), and the process of
+  global rank 0 alone writes and collects old steps.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import is_dtensor, resolve_device
 from repro_torch.optim.optimizers import QTensor
 
 PyTree = Any
@@ -93,6 +98,8 @@ def _unflatten(template: PyTree, leaves) -> PyTree:
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """A copy of ``leaf`` in host memory as a storable numpy array, and the
     logical dtype's numpy name."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True).contiguous()
     name = _NAME_OF.get(t.dtype)
     if name is None:
@@ -100,6 +107,14 @@ def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
         return arr, str(arr.dtype)
     _, bits, _, as_int = _BITCAST[name]
     return t.view(as_int).numpy().view(bits), name
+
+
+def _is_writer() -> bool:
+    """Whether this process writes checkpoints: the only process, or global
+    rank 0 of a process group."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def _from_storable(arr: np.ndarray, dtype: str) -> torch.Tensor:
@@ -148,6 +163,9 @@ def save_checkpoint(tree: PyTree, directory: str, step: int, *,
         handle.committed = True
 
     handle = SaveHandle(stepdir)
+    if not _is_writer():
+        handle.committed = True            # the writer's to report
+        return handle
     if async_write:
         handle.start(write)
     else:
@@ -199,12 +217,13 @@ def latest_step(directory: str) -> Optional[int]:
 def restore_checkpoint(template: PyTree, directory: str,
                        step: Optional[int] = None, *,
                        sharding_fn: Optional[Callable[[str], Any]] = None,
-                       device=None) -> PyTree:
+                       device=None, device_mesh=None) -> PyTree:
     """Restore into the structure of ``template`` (keys, shapes and dtypes;
     its leaves may lie on the ``meta`` device), each leaf cast to the
-    template's dtype.  ``sharding_fn(key)`` may name a device per leaf
-    (elastic re-placement onto the current mesh); a leaf it gives none goes
-    to ``device`` (None: the GPU)."""
+    template's dtype.  ``sharding_fn(key)`` may name a device per leaf, or
+    the placements (a tuple) of a DTensor over ``device_mesh``: elastic
+    re-placement onto the current mesh.  A leaf it gives neither goes to
+    ``device`` (None: the GPU)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint under {directory}")
@@ -234,6 +253,13 @@ def restore_checkpoint(template: PyTree, directory: str,
                 raise ValueError(f"{key}: checkpoint shape {arr.shape}, "
                                  f"template {tuple(tmpl_leaf.shape)}")
             dev = sharding_fn(key) if sharding_fn is not None else None
+            if isinstance(dev, (tuple, list)):
+                from torch.distributed.tensor import distribute_tensor
+                out.append(distribute_tensor(
+                    _from_storable(arr, meta["dtype"]).to(
+                        default, dtype=tmpl_leaf.dtype),
+                    device_mesh, dev, src_data_rank=None))
+                continue
             out.append(_from_storable(arr, meta["dtype"]).to(
                 dev if dev is not None else default, dtype=tmpl_leaf.dtype))
     return _unflatten(template, iter(out))
@@ -266,11 +292,14 @@ class CheckpointManager:
         self._gc()          # async commits may land after save-time GC
 
     def restore(self, template: PyTree, step: Optional[int] = None,
-                sharding_fn=None, device=None) -> PyTree:
+                sharding_fn=None, device=None, device_mesh=None) -> PyTree:
         return restore_checkpoint(template, self.directory, step,
-                                  sharding_fn=sharding_fn, device=device)
+                                  sharding_fn=sharding_fn, device=device,
+                                  device_mesh=device_mesh)
 
     def _gc(self):
+        if not _is_writer():
+            return
         for s in sorted(_committed_steps(self.directory))[:-self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
                           ignore_errors=True)

@@ -6,15 +6,19 @@ training rows with EOS between documents.  numpy only: the streams are bit
 for bit those of the reference for the same seed, shard and shard count.
 
 Every host generates only its shard (``global_batch // n_shards`` rows).
-The mesh-shaped batch specs and sharded batches of the reference wait for
-the port's meshes (ROADMAP A10).
+``make_batch_specs`` gives one global batch as ``meta`` tensors (the
+dry-run's inputs); ``sharded_batches`` gives the same shapes filled, laid
+out over a mesh when a process group holds it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 
 
 @dataclass(frozen=True)
@@ -65,3 +69,81 @@ class SyntheticLM:
             labels = rows[:, 1:].copy()
             labels[tokens == self.cfg.pad_id] = -1
             yield {"tokens": tokens, "labels": labels}
+
+
+def make_batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                     dtype=torch.int32) -> dict[str, torch.Tensor]:
+    """``meta`` stand-ins for one global batch (dry-run inputs)."""
+    B, S = shape.global_batch, cfg.effective_seq(shape)
+
+    def spec(shp, dt=dtype):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if cfg.frontend == "patch_stub":
+        return {"input_embeds": spec((B, S, cfg.d_model), torch.bfloat16),
+                "labels": spec((B, S))}
+    if cfg.frontend == "frame_stub":
+        return {"frames": spec((B, cfg.max_source_positions, cfg.d_model),
+                               torch.bfloat16),
+                "tokens": spec((B, S)), "labels": spec((B, S))}
+    return {"tokens": spec((B, S)), "labels": spec((B, S))}
+
+
+def sharded_batches(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
+                    seed: int = 0, frontend_rng: Optional[int] = None, *,
+                    device=None) -> Iterator[dict[str, torch.Tensor]]:
+    """Batches of ``make_batch_specs``' shapes: tokens from the synthetic
+    corpus, stub-frontend embeddings from a seeded rng (bf16), both as the
+    reference draws them.  Token ids and labels come as int64 (the port's
+    index dtype).  With a ``launch.mesh.Mesh`` under a process group each
+    tensor is a DTensor laid out by ``launch.shardings.batch_shardings``
+    (every rank draws the same global batch and keeps its part); else a
+    tensor on ``device`` (None: the GPU)."""
+    from repro_torch.models.common import resolve_device
+    device = resolve_device(device)
+    B, S = shape.global_batch, shape.seq_len
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                    seed=seed)
+    src = SyntheticLM(dc).batches()
+    rng = np.random.default_rng(frontend_rng if frontend_rng is not None
+                                else seed + 1)
+    place = batch_placer(mesh, device)
+    while True:
+        b = next(src)
+        out: dict[str, np.ndarray] = {}
+        if cfg.frontend == "patch_stub":
+            out["input_embeds"] = rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32) * 0.02
+            out["labels"] = b["labels"]
+        elif cfg.frontend == "frame_stub":
+            out["frames"] = rng.standard_normal(
+                (B, cfg.max_source_positions, cfg.d_model)
+            ).astype(np.float32) * 0.02
+            out["tokens"] = b["tokens"]
+            out["labels"] = b["labels"]
+        else:
+            out = b
+        yield place({k: torch.from_numpy(v).to(
+            torch.bfloat16 if v.dtype == np.float32 else torch.int64)
+            for k, v in out.items()})
+
+
+def batch_placer(mesh, device):
+    """batch dict -> the same on ``device``, as DTensors over ``mesh`` when
+    a process group holds it."""
+    import torch.distributed as dist
+    if mesh is None or not (dist.is_available() and dist.is_initialized()):
+        return lambda batch: {k: v.to(device) for k, v in batch.items()}
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.shardings import batch_shardings
+    from repro_torch.models.sharding import placements
+    dm = mesh.device_mesh(device.type)
+
+    def place(batch):
+        sh = batch_shardings(batch, mesh)
+        return {k: distribute_tensor(v.to(device), dm,
+                                     placements(sh[k].spec, mesh),
+                                     src_data_rank=None)
+                for k, v in batch.items()}
+
+    return place

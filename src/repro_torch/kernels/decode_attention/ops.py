@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.atoms import schedule
 from repro_torch.kernels.decode_attention.ref import decode_attention_atom_ref
+from repro_torch.roofline import cost
 
 launches = 0                      # kernel launches made by this module
 KEY_BLOCK = 64                    # keys of the split kernel's TMA block
@@ -184,6 +185,11 @@ def decode_attention(q, k_cache, v_cache, lens, *, n_atoms: int = 1,
     B, _, _ = q.shape
     Hk = k_cache.shape[2]
     lens = lens.to(torch.int32)
+    if q.device.type == "meta" and cost.counting():
+        o = torch.empty(q.shape, dtype=q.dtype, device="meta")
+        _check(q, k_cache, v_cache, lens, o)
+        cost.charge_decode(q, k_cache, v_cache)
+        return o
     o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     for start, ln in schedule(B * Hk, n_atoms, order):
         decode_attention_atom(q, k_cache, v_cache, lens, o, start=start,

@@ -7,7 +7,10 @@ running output.  Ragged ``Sq`` / ``Sk`` are masked, never padded.
 
 For a CUDA tensor an atom launches the hand-written kernel
 (``csrc/flash_attention.cu``) or raises.  The plain PyTorch version is taken
-only for tensors that lie on the CPU.
+only for tensors that lie on the CPU.  A ``meta`` tensor raises too, except
+while a dry-run's ``roofline/cost.py`` counter is installed: then
+``flash_attention`` and ``flash_attention_bwd`` return empty outputs and
+charge the kernels' work to it.
 
 The forward can also write each row's log-sum-exp (``lse``).  The backward
 (``csrc/flash_attention_bwd.cu``) takes it: a ``delta`` pass, then atoms of
@@ -30,6 +33,7 @@ from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.ref import (
     attention_delta_ref, flash_attention_atom_ref,
     flash_attention_bwd_atom_ref)
+from repro_torch.roofline import cost
 
 launches = 0                      # forward kernel launches of this module
 bwd_launches = 0                  # backward atom kernel launches
@@ -177,8 +181,15 @@ def flash_attention(q, k, v, *, causal: bool = True, n_atoms: int = 1,
     sees only its last ``window`` keys.  ``order`` permutes the execution of
     the atoms; the result does not depend on it.  ``return_lse`` also
     returns each row's log-sum-exp, f32 [B,Hq,Sq]."""
-    o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     B, Sq, Hq, _ = q.shape
+    if q.device.type == "meta" and cost.counting():
+        o = torch.empty(q.shape, dtype=q.dtype, device="meta")
+        _check(q, k, v, o)
+        cost.charge_flash(q, k, v, causal=causal, window=window,
+                          lse=return_lse)
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device="meta")
+        return (o, lse) if return_lse else o
+    o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     # the serving path's call is the one it always was (no ``lse``)
     lse = {"lse": torch.empty((B, Hq, Sq), dtype=torch.float32,
                               device=q.device)} if return_lse else {}
@@ -333,6 +344,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     the output gradient ``do``, from the forward's ``lse``.  The delta pass
     runs first, then ``n_atoms`` atoms of ``bwd_tile_space`` in ``order``;
     the result does not depend on either."""
+    if q.device.type == "meta" and cost.counting():
+        cost.charge_flash_bwd(q, k, v, causal=causal, window=window)
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     delta = attention_delta(o, do)
     dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
     for start, ln in schedule(bwd_tile_space(q, k), n_atoms, order):

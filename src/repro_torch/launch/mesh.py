@@ -35,6 +35,7 @@ class Mesh:
         ranks.flags.writeable = False
         self.ranks = ranks
         self.axis_names = axis_names
+        self._device_meshes: dict = {}
 
     @property
     def shape(self) -> dict:
@@ -50,7 +51,8 @@ class Mesh:
 
     def device_mesh(self, device_type: str = "cuda"):
         """This mesh as a ``DeviceMesh`` over the default process group,
-        which must hold every rank of it."""
+        which must hold every rank of it.  Built once per device type and
+        process group (building one is a collective call on every rank)."""
         import torch.distributed as dist
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(f"{self}: no process group holds its ranks; "
@@ -59,9 +61,15 @@ class Mesh:
             raise RuntimeError(f"{self}: rank {int(self.ranks.max())} is "
                                f"outside the world of "
                                f"{dist.get_world_size()}")
+        world = dist.group.WORLD
+        cached = self._device_meshes.get(device_type)
+        if cached is not None and cached[0] is world:
+            return cached[1]
         from torch.distributed.device_mesh import DeviceMesh
-        return DeviceMesh(device_type, torch.from_numpy(self.ranks.copy()),
-                          mesh_dim_names=self.axis_names)
+        dm = DeviceMesh(device_type, torch.from_numpy(self.ranks.copy()),
+                        mesh_dim_names=self.axis_names)
+        self._device_meshes[device_type] = (world, dm)
+        return dm
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as _decode_ops
 from repro_torch.kernels.flash_attention import ops as _flash_ops
-from repro_torch.models.common import (einsum, fan_in_init, normal_init,
-                                       zeros_init)
+from repro_torch.kernels.sharded import local_attention
+from repro_torch.models.common import (einsum, fan_in_init, is_dtensor,
+                                       normal_init, zeros_init)
 from repro_torch.models.layers import apply_rope
 
 
@@ -108,8 +109,13 @@ def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
     launches the forward alone."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _flash_ops.FlashAttention.apply(q, k, v, causal, window)
-    return _flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        def fn(a, b, c):
+            return _flash_ops.FlashAttention.apply(a, b, c, causal, window)
+    else:
+        def fn(a, b, c):
+            return _flash_ops.flash_attention(a, b, c, causal=causal,
+                                              window=window)
+    return local_attention(fn, q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
@@ -123,8 +129,9 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
     lens = lens.expand(B)
     if window:
         lens = torch.clamp(lens, max=window)
-    return _decode_ops.decode_attention(q, k_cache, v_cache,
-                                        lens.contiguous())
+    return local_attention(_decode_ops.decode_attention, q, k_cache,
+                           v_cache, lens.contiguous(), head_dim_q=1,
+                           kind="act_bhd")
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
@@ -142,15 +149,23 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         if k_new.shape[1] != 1:
             raise ValueError("per-slot insert is decode-only (S must be 1)")
-        rows = torch.arange(k_new.shape[0], device=k_cache.device)
         idx = pos.to(device=k_cache.device, dtype=torch.long)
         if window:
             idx = idx % window
-        k_cache[rows, idx] = k_new[:, 0]
-        v_cache[rows, idx] = v_new[:, 0]
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            if is_dtensor(cache):
+                _insert_per_slot_sharded(cache, new[:, 0], idx)
+            else:
+                rows = torch.arange(new.shape[0], device=cache.device)
+                cache[rows, idx] = new[:, 0]
         return k_cache, v_cache
     pos = int(pos)
     S = k_new.shape[1]
+    if window and is_dtensor(k_cache):
+        slots = [(pos + j) % window for j in range(S)]
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            _insert_positions_sharded(cache, new, slots)
+        return k_cache, v_cache
     if window:
         idx = (pos + torch.arange(S, device=k_cache.device)) % window
         k_cache[:, idx] = k_new
@@ -159,3 +174,54 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
     k_cache[:, pos:pos + S] = k_new
     v_cache[:, pos:pos + S] = v_new
     return k_cache, v_cache
+
+
+def _laid_out_as_cache(t, cache, dims):
+    """This rank's block of ``t`` split as the DTensor ``cache`` is on the
+    cache dims that ``dims`` maps to dims of ``t``, whole elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.models.sharding import as_dtensor
+    dm = cache.device_mesh
+    pl = [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+          else Replicate() for p in cache.placements]
+    return as_dtensor(t, dm).redistribute(dm, pl).to_local()
+
+
+def _seq_offset(cache) -> int:
+    """The first sequence position of this rank's block of ``cache``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)[1][1]
+
+
+def _insert_positions_sharded(cache, new, slots):
+    """``cache[:, slots] = new`` for a DTensor cache [B,S,Hkv,Dh] and new
+    [B,len(slots),Hkv,Dh] (distinct slots, a prefill into a ring buffer):
+    each rank writes the slots that fall in its part of the sequence."""
+    n = _laid_out_as_cache(new, cache, {0: 0, 2: 2, 3: 3})
+    c = cache.to_local()
+    lo = _seq_offset(cache)
+    mine = [(j, p - lo) for j, p in enumerate(slots)
+            if lo <= p < lo + c.shape[1]]
+    if mine:
+        src, dst = (torch.tensor(x, device=c.device) for x in zip(*mine))
+        c[:, dst] = n[:, src].to(c.dtype)
+
+
+def _insert_per_slot_sharded(cache, new, idx):
+    """``cache[b, idx[b]] = new[b]`` for a DTensor cache [B,S,Hkv,Dh] (an
+    in-place index write has no DTensor rule when the cache's sequence is
+    split): on each rank's shard, ``new`` [B,Hkv,Dh] laid out as the cache's
+    batch and heads, each row written where its position falls in the
+    rank's part of the sequence and left as it was elsewhere."""
+    # cache dim -> new's dim (the sequence, dim 1, has no counterpart)
+    n = _laid_out_as_cache(new, cache, {0: 0, 2: 1, 3: 2})
+    i = _laid_out_as_cache(idx, cache, {0: 0})
+    c = cache.to_local()
+    local = i - _seq_offset(cache)
+    inside = (local >= 0) & (local < c.shape[1])
+    local = local.clamp(0, c.shape[1] - 1)
+    rows = torch.arange(c.shape[0], device=c.device)
+    c[rows, local] = torch.where(inside[:, None, None], n.to(c.dtype),
+                                 c[rows, local])

@@ -104,11 +104,35 @@ def _upcast(x: torch.Tensor) -> bool:
     return x.device.type == "cpu" and x.dtype == torch.bfloat16
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _contract(spec, a, b, fn=None):
+    """``torch.einsum(spec, a, b)``; over DTensors on each rank's blocks
+    (``sharding.local_contract``, each block through ``fn``)."""
+    if is_dtensor(a) or is_dtensor(b):
+        from repro_torch.models.sharding import local_contract
+        return local_contract(spec, a, b, fn)
+    return torch.einsum(spec, a, b)
+
+
+def _matmul(x, w):
+    """``x @ w`` of x [..., K] and w [K, N]; over DTensors as ``_contract``,
+    each rank's blocks through ``torch.matmul`` as a plain tensor's."""
+    if is_dtensor(x) or is_dtensor(w):
+        lead = "abcefghijl"[:x.ndim - 1]
+        return _contract(f"{lead}k,kn->{lead}n", x, w,
+                         lambda _, a, b: torch.matmul(a, b))
+    return torch.matmul(x, w)
+
+
 def dot(x, w):
     """Matmul with f32 accumulation, output in x.dtype."""
     if _upcast(x):
-        return torch.matmul(x.float(), w.float()).to(x.dtype)
-    return torch.matmul(x, w)
+        return _matmul(x.float(), w.float()).to(x.dtype)
+    return _matmul(x, w)
 
 
 def einsum(spec, *args, out_dtype: Optional[torch.dtype] = None):
@@ -119,7 +143,9 @@ def einsum(spec, *args, out_dtype: Optional[torch.dtype] = None):
     dt = out_dtype if out_dtype is not None else args[0].dtype
     if any(_upcast(a) for a in args) or (
             dt == torch.float32 and any(a.dtype != dt for a in args)):
-        return torch.einsum(spec, *(a.float() for a in args)).to(dt)
+        args = tuple(a.float() for a in args)
+    if len(args) == 2:
+        return _contract(spec, *args).to(dt)
     return torch.einsum(spec, *args).to(dt)
 
 
@@ -142,14 +168,25 @@ class _MmF32(torch.autograd.Function):
 
 
 def dot_f32(x, w):
-    """``x @ w`` with the result kept in f32 (the LM head's logits)."""
+    """``x @ w`` with the result kept in f32 (the LM head's logits).  On
+    ``meta`` (a dry-run) it takes the card's path."""
     if x.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         lead = x.shape[:-1]
-        out = _MmF32.apply(x.reshape(-1, x.shape[-1]), w)
+        out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def _mm_f32(x, w):
+    """``_MmF32`` of [N,K] x [K,M]; over DTensors (``mm`` with an
+    ``out_dtype`` has no DTensor rule) on each rank's blocks."""
+    if is_dtensor(x) or is_dtensor(w):
+        from repro_torch.models.sharding import local_contract
+        return local_contract("nk,km->nm", x, w,
+                              lambda _, a, b: _MmF32.apply(a, b))
+    return _MmF32.apply(x, w)
 
 
 # ---------------------------------------------------------------------------

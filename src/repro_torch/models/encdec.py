@@ -38,7 +38,7 @@ from repro_torch.models.common import (dtype_of, einsum, make_generator,
 from repro_torch.models.layers import (apply_head, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_mlp,
                                        init_norm)
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import _layer, _residual
 
 PyTree = Any
 
@@ -133,9 +133,9 @@ def encode(params, cfg: ArchConfig, frames) -> torch.Tensor:
     for l in range(cfg.n_encoder_layers):
         lp = _layer(params["enc_layers"], l)
         h = apply_norm(lp["ln1"], x, cfg.norm)
-        x = x + _self_attn(lp["attn"], h, causal=False)
+        x = _residual(x, _self_attn(lp["attn"], h, causal=False))
         h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + apply_mlp(lp["mlp"], h, "gelu")
+        x = _residual(x, apply_mlp(lp["mlp"], h, "gelu"))
     return apply_norm(params["enc_final_norm"], x, cfg.norm)
 
 
@@ -150,11 +150,12 @@ def decoder_forward(params, cfg: ArchConfig, tokens, enc_out) -> torch.Tensor:
     for l in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], l)
         h = apply_norm(lp["ln1"], x, cfg.norm)
-        x = x + _self_attn(lp["attn"], h, causal=True)
+        x = _residual(x, _self_attn(lp["attn"], h, causal=True))
         h = apply_norm(lp["ln_x"], x, cfg.norm)
-        x = x + _cross_attn(lp["xattn"], h, _xattn_kv(lp["xattn"], enc_out))
+        x = _residual(x, _cross_attn(lp["xattn"], h,
+                                     _xattn_kv(lp["xattn"], enc_out)))
         h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + apply_mlp(lp["mlp"], h, "gelu")
+        x = _residual(x, apply_mlp(lp["mlp"], h, "gelu"))
     return apply_norm(params["final_norm"], x, cfg.norm)
 
 
@@ -210,13 +211,13 @@ def decode_step(params, cfg: ArchConfig, token, pos: int, caches):
         kc, vc = attn_lib.update_kv_cache(caches["k"][l], caches["v"][l], k,
                                           v, pos)
         o = attn_lib.decode_attention(q[:, 0], kc, vc, lens_self)
-        x = x + attn_lib.out_project(lp["attn"], o[:, None])
+        x = _residual(x, attn_lib.out_project(lp["attn"], o[:, None]))
         h = apply_norm(lp["ln_x"], x, cfg.norm)
         qx = _q_project(lp["xattn"], h)
         ox = attn_lib.decode_attention(qx[:, 0], caches["xk"][l],
                                        caches["xv"][l], lens_x)
-        x = x + attn_lib.out_project(lp["xattn"], ox[:, None])
+        x = _residual(x, attn_lib.out_project(lp["xattn"], ox[:, None]))
         h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + apply_mlp(lp["mlp"], h, "gelu")
+        x = _residual(x, apply_mlp(lp["mlp"], h, "gelu"))
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x)[:, 0], caches

@@ -4,8 +4,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (dot, dot_f32, fan_in_init, normal_init,
-                                       ones_init, zeros_init)
+from repro_torch.models.common import (dot, dot_f32, fan_in_init,
+                                       is_dtensor, normal_init, ones_init,
+                                       zeros_init)
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +107,43 @@ def init_embed(gen, vocab: int, d: int, dtype, with_pos: int = 0):
 
 
 def embed_tokens(params, tokens):
-    return params["tok"][tokens]
+    table = params["tok"]
+    if is_dtensor(table):
+        return _embed_sharded(table, tokens)
+    return table[tokens]
+
+
+def _embed_sharded(table, tokens):
+    """``table[tokens]`` of a DTensor table [V,D], each rank looking its
+    tokens up in its own rows of the vocabulary (zeros for the others',
+    a partial sum over the vocabulary's split), so the backward is a local
+    index write (DTensor's rule for it fails on some torch versions).
+    Tokens keep their batch split; the table is gathered over those mesh
+    dims and over any split of D."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.models.sharding import as_dtensor, dtensor
+    dm = table.device_mesh
+    tokens = as_dtensor(tokens, dm)
+    tok_pl, tab_pl, grad_pl, out_pl = [], [], [], []
+    for pt, pw in zip(tokens.placements, table.placements):
+        rows = isinstance(pt, Shard) and pt.dim == 0
+        vocab = not rows and isinstance(pw, Shard) and pw.dim == 0
+        tok_pl.append(Shard(0) if rows else Replicate())
+        tab_pl.append(Shard(0) if vocab else Replicate())
+        grad_pl.append(Partial() if rows else tab_pl[-1])
+        out_pl.append(Shard(0) if rows else Partial() if vocab
+                      else Replicate())
+    tok = tokens.redistribute(dm, tok_pl).to_local()
+    t = table.redistribute(dm, tab_pl).to_local(grad_placements=grad_pl)
+    _, offset = compute_local_shape_and_global_offset(table.shape, dm,
+                                                      tab_pl)
+    idx = tok - offset[0]
+    inside = (idx >= 0) & (idx < t.shape[0])
+    out = torch.where(inside[..., None], t[idx.clamp(0, t.shape[0] - 1)],
+                      0)
+    return dtensor(out, dm, out_pl, tuple(tokens.shape) + (table.shape[1],))
 
 
 def init_head(gen, d: int, vocab: int, dtype):

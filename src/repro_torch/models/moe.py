@@ -22,12 +22,14 @@ runs that should agree up to rounding elsewhere can share one routing.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models.sharding import local_rows, shard_dims
 from repro_torch.models.common import einsum, fan_in_init, normal_init
 from repro_torch.models.layers import apply_mlp
 
@@ -95,25 +97,47 @@ def _moe_grouped(params, xg, cfg: MoEConfig, C: int,
     slot = torch.where(keep, s_eid * C + pos_in_e,
                        torch.full_like(s_eid, E * C))             # drop slot
 
-    gathered = torch.gather(xg, 1, s_tok[..., None].expand(G, T * K, D))
-    buf = torch.zeros((G, E * C + 1, D), dtype=xg.dtype, device=xg.device)
-    # every kept triple has its own slot; the dropped ones all land in the
-    # drop slot, which is cut off below
-    buf.scatter_(1, slot[..., None].expand(G, T * K, D), gathered)
-    expert_in = buf[:, :-1].reshape(G, E, C, D)
+    expert_in = local_rows(functools.partial(_dispatch, E=E, C=C), xg, slot,
+                           s_tok)
+    expert_in = shard_dims(expert_in, ("dp", None, None, None))
 
     h = einsum("gecd,edf->gecf", expert_in, params["wi"])
     g = einsum("gecd,edf->gecf", expert_in, params["wg"])
-    h = F.silu(g) * h
+    h = shard_dims(F.silu(g) * h, ("dp", None, None, "tp"))
     expert_out = einsum("gecf,efd->gecd", h, params["wo"])
+    expert_out = shard_dims(expert_out, ("dp", None, None, None))
 
+    out = local_rows(functools.partial(_combine, T=T), expert_out, slot,
+                     s_tok, s_gate)
+    return out, lb_loss, z_loss, expert_ids
+
+
+def _dispatch(xg, slot, s_tok, *, E: int, C: int):
+    """Each kept (token, choice) of a group into its expert's slot:
+    [G,T,D] -> [G,E,C,D]."""
+    G, TK = slot.shape
+    D = xg.shape[-1]
+    gathered = torch.gather(xg, 1, s_tok[..., None].expand(G, TK, D))
+    buf = torch.zeros((G, E * C + 1, D), dtype=xg.dtype, device=xg.device)
+    # every kept triple has its own slot; the dropped ones all land in the
+    # drop slot, which is cut off below
+    buf.scatter_(1, slot[..., None].expand(G, TK, D), gathered)
+    return buf[:, :-1].reshape(G, E, C, D)
+
+
+def _combine(expert_out, slot, s_tok, s_gate, *, T: int):
+    """The experts' outputs back to their tokens, gate-weighted, in f32:
+    [G,E,C,D] -> [G,T,D]."""
+    G, E, C, D = expert_out.shape
+    TK = slot.shape[1]
     flat_out = torch.cat([expert_out.reshape(G, E * C, D),
                           expert_out.new_zeros((G, 1, D))], dim=1)
-    picked = torch.gather(flat_out, 1, slot[..., None].expand(G, T * K, D))
+    picked = torch.gather(flat_out, 1, slot[..., None].expand(G, TK, D))
     contrib = picked.float() * s_gate[..., None]
-    out = torch.zeros((G, T, D), dtype=torch.float32, device=xg.device)
-    out.scatter_add_(1, s_tok[..., None].expand(G, T * K, D), contrib)
-    return out, lb_loss, z_loss, expert_ids
+    out = torch.zeros((G, T, D), dtype=torch.float32,
+                      device=expert_out.device)
+    out.scatter_add_(1, s_tok[..., None].expand(G, TK, D), contrib)
+    return out
 
 
 def apply_moe(params, x, cfg: MoEConfig, *,

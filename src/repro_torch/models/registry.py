@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.models.sharding import gather_last, logsumexp_last
 
 PyTree = Any
 
@@ -61,10 +62,11 @@ def _encdec_loss(params, cfg: ArchConfig, h, labels):
     """Masked mean CE through the tied embedding, all positions at once
     (whisper's vocabulary is small), as the reference's."""
     logits = encdec.lm_logits(params, cfg, h)            # [B,S,V] f32
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    lse = logsumexp_last(logits)
+    gold = gather_last(logits, labels.clamp_min(0))
     mask = (labels >= 0).to(torch.float32)
-    return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return (((lse - gold)[..., 0] * mask).sum()
+            / mask.sum().clamp_min(1.0))
 
 
 @torch.no_grad()

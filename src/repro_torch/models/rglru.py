@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dot, fan_in_init, normal_init, zeros_init
+from repro_torch.models.sharding import pad as pad_
 
 _C = 8.0
 
@@ -44,7 +45,7 @@ def init_rglru_block(gen, d: int, width: int, conv_width: int, dtype,
 def causal_conv(u, conv_w, conv_b=None):
     """u: [B,S,W]; depthwise causal conv along S (zeros before the start)."""
     cw, S = conv_w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, cw - 1, 0))
+    pad = pad_(u, (0, 0, cw - 1, 0))
     out = pad[:, 0:S] * conv_w[0]
     for i in range(1, cw):
         out = out + pad[:, i:i + S] * conv_w[i]

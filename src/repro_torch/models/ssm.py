@@ -33,11 +33,20 @@ from repro_torch.models.common import (dot, einsum, fan_in_init, normal_init,
                                        zeros_init)
 from repro_torch.models.layers import apply_mlp
 from repro_torch.models.rglru import causal_conv
+from repro_torch.models.sharding import local_pointwise, local_rows
+from repro_torch.models.sharding import pad as pad_
+from repro_torch.roofline import cost
 
 MLSTM_EXPANSION = 2.0
 SLSTM_FF_EXPANSION = 8.0 / 3.0
 NEG_INF = -1e30
 _GATES = ("i", "f", "z", "o")
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``, on each rank's shard of a DTensor (its backward has
+    no DTensor rule)."""
+    return local_pointwise(F.logsigmoid, x)
 
 
 # ===========================================================================
@@ -105,7 +114,7 @@ def _mlstm_chunk(state: dict, q, k, v, ig, fg):
     L = q.shape[1]
     q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))   # [B,H,L,hd]
     ig = ig.transpose(1, 2)                                    # [B,H,L]
-    logf = F.logsigmoid(fg).transpose(1, 2)
+    logf = _logsigmoid(fg).transpose(1, 2)
     b = torch.cumsum(logf, dim=-1)            # cumulative log forget
     b_total = b[..., -1]
     m0 = state["m"]
@@ -145,6 +154,33 @@ def _mlstm_chunk(state: dict, q, k, v, ig, fg):
     return {"C": C_new, "n": n_new, "m": m_new}, h.transpose(1, 2)
 
 
+_MLSTM_STATE = ("C", "n", "m")
+
+
+def _mlstm_scan(q, k, v, ig, fg, *state, chunk: int):
+    """The chunks of q/k/v [B,S,H,hd], ig/fg [B,S,H] (S a multiple of
+    ``chunk``) from ``state`` (C, n, m): (h [B,S,H,hd], C, n, m at the
+    end).  Traced on ``meta`` under a dry-run's counter, one chunk stands
+    for all."""
+    if q.is_meta and cost.counting():
+        def one(*args):
+            st, h = _mlstm_chunk(dict(zip(_MLSTM_STATE, args[5:])),
+                                 *(t[:, :chunk] for t in args[:5]))
+            return (h, *(st[n] for n in _MLSTM_STATE))
+        outs = [(tuple(q.shape), torch.float32)] + [
+            (tuple(t.shape), t.dtype) for t in state]
+        return cost.loop_once(one, q.shape[1] // chunk, outs, q, k, v, ig,
+                              fg, *state)
+    st = dict(zip(_MLSTM_STATE, state))
+    hs = []
+    for c0 in range(0, q.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        st, h = _mlstm_chunk(st, q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
+                             fg[:, sl])
+        hs.append(h)
+    return (torch.cat(hs, dim=1), *(st[n] for n in _MLSTM_STATE))
+
+
 def apply_mlstm_block(params, x, *, chunk: int = 256, state: dict = None,
                       return_state: bool = False):
     """x: [B,S,D] -> [B,S,D] (chunkwise-parallel mLSTM).
@@ -159,23 +195,21 @@ def apply_mlstm_block(params, x, *, chunk: int = 256, state: dict = None,
     if pad:
         # the reference's padding: zeros for q/k/v and the forget logits,
         # NEG_INF for the input logits
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-        ig = F.pad(ig, (0, 0, 0, pad), value=NEG_INF)
-        fg = F.pad(fg, (0, 0, 0, pad))
+        q, k, v = (pad_(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        ig = pad_(ig, (0, 0, 0, pad), value=NEG_INF)
+        fg = pad_(fg, (0, 0, 0, pad))
     st = (state if state is not None
           else init_mlstm_state(B, H, hd, x.device))
-    hs = []
-    for c0 in range(0, S + pad, chunk):
-        sl = slice(c0, c0 + chunk)
-        st, h = _mlstm_chunk(st, q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
-                             fg[:, sl])
-        hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(B, S + pad, H * hd)[:, :S].to(x.dtype)
+    # over a mesh each rank runs its rows' chunks on local tensors
+    h, *last = local_rows(functools.partial(_mlstm_scan, chunk=chunk), q, k,
+                          v, ig, fg, *(st[n] for n in _MLSTM_STATE))
+    st = dict(zip(_MLSTM_STATE, last))
+    h = h.reshape(B, S + pad, H * hd)[:, :S].to(x.dtype)
     out = dot(h * F.silu(o_in), params["w_down"])
     if return_state:
         cw = params["conv_w"].shape[0]
         c_in = dot(x, params["w_up"])[..., :params["w_q"].shape[0]]
-        tail = F.pad(c_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
+        tail = pad_(c_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
         return out, (st, tail)
     return out
 
@@ -194,7 +228,7 @@ def decode_mlstm_block(params, x, state: dict, conv_state):
                  out_dtype=torch.float32)[:, 0] + params["b_ig"])
     fg = (einsum("btd,dh->bth", c_in, params["w_fg"],
                  out_dtype=torch.float32)[:, 0] + params["b_fg"])
-    logf = F.logsigmoid(fg)
+    logf = _logsigmoid(fg)
     m_new = torch.maximum(logf + state["m"], ig)
     f_s = torch.exp(logf + state["m"] - m_new)
     i_s = torch.exp(ig - m_new)
@@ -246,7 +280,7 @@ def _slstm_step(params, R, state: dict, wx):
     fl = pre[:, :, 1] + params["b_f"]
     zl = torch.tanh(pre[:, :, 2] + params["b_z"])
     ol = torch.sigmoid(pre[:, :, 3] + params["b_o"])
-    logf = F.logsigmoid(fl)
+    logf = _logsigmoid(fl)
     m_new = torch.maximum(logf + state["m"], il)
     i_s = torch.exp(il - m_new)
     f_s = torch.exp(logf + state["m"] - m_new)
@@ -254,6 +288,32 @@ def _slstm_step(params, R, state: dict, wx):
     n = torch.clamp(f_s * state["n"] + i_s, min=1e-6)
     h = ol * c / n
     return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+_STATE = ("c", "n", "h", "m")
+
+
+def _slstm_scan(wx, R, b_i, b_f, b_z, b_o, *state):
+    """The recurrence over the S steps of wx [B,S,H,4,hd] from ``state``
+    (c, n, h, m): (h [B,S,H,hd], c, n, h, m at the end).  Traced on
+    ``meta`` under a dry-run's counter, one step stands for the S."""
+    params = {"b_i": b_i, "b_f": b_f, "b_z": b_z, "b_o": b_o}
+    if wx.is_meta and cost.counting():
+        def one(wx, R, *rest):
+            p = dict(zip(("b_i", "b_f", "b_z", "b_o"), rest[:4]))
+            st = _slstm_step(p, R, dict(zip(_STATE, rest[4:])), wx[:, 0])
+            return tuple(st[k] for k in _STATE)
+        B, S, H, _, hd = wx.shape
+        outs = [((B, S, H, hd), torch.float32)] + [
+            (tuple(t.shape), t.dtype) for t in state]
+        return cost.loop_once(one, S, outs, wx, R, b_i, b_f, b_z, b_o,
+                              *state)
+    st = dict(zip(_STATE, state))
+    hs = []
+    for t in range(wx.shape[1]):
+        st = _slstm_step(params, R, st, wx[:, t])
+        hs.append(st["h"])
+    return (torch.stack(hs, dim=1), *(st[k] for k in _STATE))
 
 
 def apply_slstm_block(params, x, *, state: dict = None,
@@ -266,11 +326,12 @@ def apply_slstm_block(params, x, *, state: dict = None,
                      dim=3)                                    # [B,S,H,4,hd]
     R = torch.cat([params[f"r_{g}"].float() for g in _GATES], dim=-1)
     st = state if state is not None else init_slstm_state(B, H, hd, x.device)
-    hs = []
-    for t in range(S):
-        st = _slstm_step(params, R, st, wx[:, t])
-        hs.append(st["h"])
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    # over a mesh each rank runs its rows' recurrence on local tensors
+    h, *last = local_rows(_slstm_scan, wx, R,
+                          *(params[f"b_{g}"] for g in _GATES),
+                          *(st[k] for k in _STATE), shared=(1, 2, 3, 4, 5))
+    st = dict(zip(_STATE, last))
+    h = h.reshape(B, S, D).to(x.dtype)
     out = h + apply_mlp({"wi": params["ffn_wi"], "wg": params["ffn_wg"],
                          "wo": params["ffn_wo"]}, h, "swiglu")
     if return_state:

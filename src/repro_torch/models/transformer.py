@@ -53,6 +53,8 @@ from repro_torch.models.common import (dot, dtype_of, make_generator,
 from repro_torch.models.layers import (apply_head, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_head,
                                        init_mlp, init_norm, rope_table)
+from repro_torch.models.sharding import (gather_last, logsumexp_last,
+                                         shard_act)
 
 PyTree = Any
 
@@ -165,6 +167,16 @@ def _no_aux(x):
     return z, z
 
 
+def _residual(x, y):
+    """``x + y``, the residual stream.  Over a mesh it is constrained to
+    ``act_btd`` (batch over data, whole rows on every model rank): a block's
+    output projection leaves a partial sum over ``model``, which is reduced
+    here, so the next block's products shard over ``model`` instead of
+    gathering their weights (DTensor picks the layout that moves the fewest
+    bytes, whatever it costs in compute)."""
+    return shard_act(x + y, "act_btd")
+
+
 def _ffn(bp, x, cfg: ArchConfig, kind: str):
     """The block's second half: norm, then the MLP or (attention blocks of
     MoE configs) the experts, residual added.  Returns (x, (lb, z)): the
@@ -173,8 +185,8 @@ def _ffn(bp, x, cfg: ArchConfig, kind: str):
     h = apply_norm(bp["ln2"], x, cfg.norm)
     if kind == "attn" and cfg.moe is not None:
         out, aux = moe_lib.apply_moe(bp["moe"], h, cfg.moe)
-        return x + out, aux
-    return x + apply_mlp(bp["mlp"], h, cfg.activation), _no_aux(x)
+        return _residual(x, out), aux
+    return _residual(x, apply_mlp(bp["mlp"], h, cfg.activation)), _no_aux(x)
 
 
 def _store(cache: dict, new: dict) -> None:
@@ -195,13 +207,14 @@ def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
     if kind == "attn":
         q, k, v = attn_lib.qkv_project(bp["attn"], h, positions,
                                        cfg.rope_theta, rope=rope)
+        q = shard_act(q, "act_bthd")
         o = attn_lib.prefill_attention(q, k, v, causal=True, window=window)
         if cache is not None:
             S = k.shape[1]
             keep = min(window, S) if window else S
             attn_lib.update_kv_cache(cache["k"], cache["v"], k[:, S - keep:],
                                      v[:, S - keep:], S - keep, window=window)
-        x = x + attn_lib.out_project(bp["attn"], o)
+        x = _residual(x, attn_lib.out_project(bp["attn"], o))
         return _ffn(bp, x, cfg, kind)
     if kind == "rec":
         if cache is None:
@@ -211,7 +224,7 @@ def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
                 bp["rec"], h, conv_state=torch.zeros_like(cache["conv"]),
                 return_state=True)
             _store(cache, {"h": hN, "conv": conv})
-        return _ffn(bp, x + o, cfg, kind)
+        return _ffn(bp, _residual(x, o), cfg, kind)
     if kind == "mlstm":
         if cache is None:
             o = ssm_lib.apply_mlstm_block(bp["mlstm"], h)
@@ -219,7 +232,7 @@ def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
             o, (st, tail) = ssm_lib.apply_mlstm_block(bp["mlstm"], h,
                                                       return_state=True)
             _store(cache, {**st, "conv": tail})
-        return x + o, _no_aux(x)
+        return _residual(x, o), _no_aux(x)
     if kind == "slstm":
         if cache is None:
             o = ssm_lib.apply_slstm_block(bp["slstm"], h)
@@ -227,7 +240,7 @@ def _apply_block(bp, x, cfg: ArchConfig, kind: str, positions, rope,
             o, st = ssm_lib.apply_slstm_block(bp["slstm"], h,
                                               return_state=True)
             _store(cache, st)
-        return x + o, _no_aux(x)
+        return _residual(x, o), _no_aux(x)
     raise ValueError(kind)
 
 
@@ -242,23 +255,23 @@ def _decode_block(bp, x, cfg, kind, pos, lens, rope, cache):
         kc, vc = attn_lib.update_kv_cache(cache["k"], cache["v"], k, v, pos,
                                           window=window)
         o = attn_lib.decode_attention(q[:, 0], kc, vc, lens, window=window)
-        x = x + attn_lib.out_project(bp["attn"], o[:, None])
+        x = _residual(x, attn_lib.out_project(bp["attn"], o[:, None]))
         return _ffn(bp, x, cfg, kind)[0]
     if kind == "rec":
         o, hN, conv = rglru_lib.decode_rglru_block(bp["rec"], h, cache["h"],
                                                    cache["conv"])
         _store(cache, {"h": hN, "conv": conv})
-        return _ffn(bp, x + o, cfg, kind)[0]
+        return _ffn(bp, _residual(x, o), cfg, kind)[0]
     if kind == "mlstm":
         st = {n: cache[n] for n in ("C", "n", "m")}
         o, st, conv = ssm_lib.decode_mlstm_block(bp["mlstm"], h, st,
                                                  cache["conv"])
         _store(cache, {**st, "conv": conv})
-        return x + o
+        return _residual(x, o)
     if kind == "slstm":
         o, st = ssm_lib.decode_slstm_block(bp["slstm"], h, dict(cache))
         _store(cache, st)
-        return x + o
+        return _residual(x, o)
     raise ValueError(kind)
 
 
@@ -345,7 +358,7 @@ def forward(params, cfg: ArchConfig, tokens=None, *, input_embeds=None,
     ``attn_block`` is accepted for the reference's signature and has no
     effect (the kernel's q tile is ``flash_attention.ops.BLOCK_Q``)."""
     del attn_block
-    x = embed_inputs(params, cfg, tokens, input_embeds)
+    x = shard_act(embed_inputs(params, cfg, tokens, input_embeds), "act_btd")
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     rope = rope_table(positions, cfg.head_dim, cfg.rope_theta)
@@ -357,7 +370,7 @@ def forward(params, cfg: ArchConfig, tokens=None, *, input_embeds=None,
             x, (a_lb, a_zl) = _apply_block(gp[str(pos)], x, cfg, kind,
                                            positions, rope)
             lb, zl = lb + a_lb, zl + a_zl
-        return x, lb, zl
+        return shard_act(x, "act_btd"), lb, zl
 
     body = _remat(group, remat)
     lb, zl = _no_aux(x)
@@ -380,10 +393,10 @@ def lm_logits(params, cfg: ArchConfig, h):
 
 def _chunk_loss(params, cfg, hx, lx, mx):
     """(sum of masked NLL, mask count) of one chunk: [B,c,D] -> f32."""
-    logits = lm_logits(params, cfg, hx)                  # [B,c,V] f32
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lx.clamp_min(0)[..., None])[..., 0]
-    return ((lse - gold) * mx).sum(), mx.sum()
+    logits = shard_act(lm_logits(params, cfg, hx), "act_btv")  # [B,c,V] f32
+    lse = logsumexp_last(logits)
+    gold = gather_last(logits, lx.clamp_min(0))
+    return ((lse - gold)[..., 0] * mx).sum(), mx.sum()
 
 
 def lm_loss(params, cfg: ArchConfig, h, labels, *, chunk: int = 512,

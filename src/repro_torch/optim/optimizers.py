@@ -18,9 +18,9 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.sharding import pad as pad_
 
 PyTree = Any
 QBLOCK = 128     # values a quantization block holds, along the last dim
@@ -45,7 +45,7 @@ def quantize(x: torch.Tensor) -> QTensor:
     last = shape[-1]
     pad = (-last) % QBLOCK
     if pad:
-        x2 = F.pad(x2, (0, pad))
+        x2 = pad_(x2, (0, pad))
     blocks = x2.reshape(shape[:-1] + ((last + pad) // QBLOCK, QBLOCK))
     scale = (blocks.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
     q = torch.clamp(torch.round(blocks / scale[..., None]), -127, 127)

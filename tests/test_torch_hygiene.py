@@ -156,7 +156,9 @@ def test_import_leaves_jax_and_triton_out():
         "import repro_torch.optim, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.distributed\n"
         "import repro_torch.launch.mesh, repro_torch.launch.shardings\n"
-        "import repro_torch.models.sharding\n"
+        "import repro_torch.models.sharding, repro_torch.kernels.sharded\n"
+        "import repro_torch.launch.dryrun, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.cost, repro_torch.roofline.comm\n"
         "import repro_torch.core.cluster, repro_torch.ctl.cli\n"
         "import repro_torch.ctl.daemon\n"
         "import torch\n"

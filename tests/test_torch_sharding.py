@@ -262,6 +262,8 @@ def test_launch_train_takes_a_mesh_of_one_rank_and_refuses_more():
     _, losses = train(cfg, steps=1, batch=2, seq=8, device="cpu",
                       mesh=single_device_mesh(), verbose=False)
     assert len(losses) == 1 and np.isfinite(losses[0])
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # more ranks need a process group to hold them (one process a rank:
+    # tests/test_torch_mesh_train.py)
+    with pytest.raises(RuntimeError, match="no process group"):
         train(cfg, steps=1, batch=2, seq=8, device="cpu",
               mesh=make_mesh((4, 2), ("data", "model")), verbose=False)
