@@ -9,8 +9,9 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (values, atom order-freedom,
 rows / tiles outside an atom untouched, the route each case took: for decode
 attention every split count of the split-KV kernel; key pitches it cannot
-take are refused; head_dim 256 and sliding windows), times them beside their
-bound (decode attention at three shapes, flash attention at two), then
+take are refused; head_dim 256 and sliding windows; the flash backward's
+three paths: bf16 at head_dim 64 / 128 and 256, f32), times them beside
+their bound (decode attention at three shapes, flash attention at two), then
 drives the paths, each with the kernels' launch counts set to 0 just before
 and read just after: it serves full-size ``llama3-8b``, ``olmo-1b``,
 ``qwen2-moe-a2.7b`` (MoE), ``recurrentgemma-9b`` (RG-LRU and local attention
@@ -41,7 +42,13 @@ and on a cluster of two such nodes, both engines bit-equal) and the online
 control plane (``ctl``: the served llama3-8b deployment submitted through
 ``launch.serve --ctl-state-dir`` beside a best-effort olmo-1b trainer,
 ``python -m repro_torch.ctl daemon`` killed with SIGKILL and restarted until
-both finish).  Every phase prints one
+both finish).  It trains recurrentgemma-9b's (rec, rec, attn) period at
+full width (head_dim 256, MQA, window 2048: the backward's ``mma.sync``
+path) and olmo-1b's widths in float32 (its CUDA-core path) through
+``launch.train.train`` (``train_hybrid``), and runs the port's examples and
+scripts as a user would (``examples``: quickstart at full-width olmo-1b,
+train_lm with a resume, the simulator examples, both engines' parity and
+the control plane's smoke).  Every phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -135,6 +142,22 @@ BWD_SHAPES = {
     "window": ((1, 1000, 1000, 16, 4, 128, True, 256),
                (1, 70, 70, 4, 2, 16, True, 32)),
 }
+# the backward's paths beside bf16 at head_dim 64 / 128 (B, S, Hq, Hk, D,
+# dtype, causal, window; full size, then the rehearsal's toy):
+# recurrentgemma-9b's training shape (head_dim 256, MQA, window 2048, 4096
+# tokens: the mma.sync path) and olmo-1b's at float32 (the CUDA-core path).
+# bf16 is held row by row to ``BWD_REL_TOL``; f32 against f32 differs only
+# in summation order, ~1e-6 of a gradient's largest |value|, but a row whose
+# gradient cancels reads the rounding of delta, so f32 is held to
+# ``BWD_F32_TOL`` of the tensor's largest |value| instead.
+BWD_PATH_SHAPES = {
+    "recurrentgemma_d256_window": ((2, 4096, 16, 1, 256, "bfloat16", True,
+                                    2048),
+                                   (1, 150, 4, 1, 256, "bfloat16", True, 70)),
+    "olmo_f32": ((2, 2048, 16, 16, 128, "float32", True, 0),
+                 (1, 100, 2, 2, 128, "float32", True, 0)),
+}
+BWD_F32_TOL = 1e-5
 # the train phase's kernel-vs-plain step (full-width olmo-1b, 2 layers, the
 # same params and batch): the loss, and every layer's slice of every
 # gradient leaf as its relative L2 error ||g_kernel - g_plain|| / ||g_plain||.
@@ -145,6 +168,11 @@ BWD_SHAPES = {
 # taken without delta) must read above it.
 TRAIN_GRAD_TOL = 0.05
 TRAIN_LOSS_TOL = 0.02
+# ``train_hybrid``'s float32 row: both passes are f32 and differ only in the
+# attention's summation order (~1e-6 relative), which the layers carry on;
+# the limits sit well above that and far below what a planted fault reads
+TRAIN_F32_GRAD_TOL = 1e-3
+TRAIN_F32_LOSS_TOL = 1e-4
 # timed shapes beside ``DECODE_SHAPES`` (full size, then the rehearsal's
 # toy): two slots of recurrentgemma-9b on its ring of 2048 keys, one full
 # and one not (MQA: 16 query heads on one KV head, head_dim 256); a
@@ -703,7 +731,7 @@ def check_flash_bwd(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, causal,
         return res
     # planted faults: dQ without delta; the first dK/dV tile's dK zeroed
     delta = ops.attention_delta(o, do)
-    n_dq = ref.bwd_tile_space(q, k, ops.BWD_BLOCK_Q, ops.BWD_BLOCK_K)[0]
+    n_dq = ref.bwd_tile_space(q, k, *ops.bwd_blocks(q.dtype, D))[0]
     total = ops.bwd_tile_space(q, k)
     dq0, dk0, dv0 = (torch.zeros_like(t) for t in (q, k, v))
     ops.flash_attention_bwd_atom(q, k, v, do, lse, torch.zeros_like(delta),
@@ -778,6 +806,14 @@ def check_flash_bwd(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, causal,
 
 def flash_bwd_cases(torch, dev, gen, real: bool, iters: int) -> dict:
     out = {}
+    for name, shapes in BWD_PATH_SHAPES.items():
+        B, S, Hq, Hk, D, dtype, causal, W = shapes[0 if real else 1]
+        out[name] = {"shape": {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D,
+                               "causal": causal, "window": W},
+                     **check_flash_bwd_path(torch, dev, gen, B=B, S=S, Hq=Hq,
+                                            Hk=Hk, D=D, dtype=dtype,
+                                            causal=causal, window=W,
+                                            iters=iters)}
     for name, shapes in BWD_SHAPES.items():
         B, Sq, Sk, Hq, Hk, D, causal, W = shapes[0 if real else 1]
         out[name] = {"shape": {"B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hk": Hk,
@@ -787,6 +823,150 @@ def flash_bwd_cases(torch, dev, gen, real: bool, iters: int) -> dict:
                                        window=W, iters=iters,
                                        with_timing=name == "olmo_train")}
     return out
+
+
+def library_bwd(torch, q, k, v, do, want, *, causal, window, iters):
+    """The yardstick: one backward of ``scaled_dot_product_attention`` at
+    the same shape, its K and V repeated to the query heads (gradients
+    summed back over each group to check them), a window as a boolean mask.
+    Tries the flash, memory-efficient and cuDNN backends in turn; returns
+    (ms, the backend that took it, its gradients' error, the reasons of the
+    backends that refused), ms None where none takes it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G = Hq // Hk
+    q4, do4 = q.transpose(1, 2), do.transpose(1, 2)
+    k4, v4 = (t.repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
+    mask, is_causal = None, causal
+    if window:
+        qpos = (Sk - Sq) + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None]
+        mask = (kpos > qpos - window) & (kpos <= qpos if causal else True)
+        is_causal = False
+    refused = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                ins = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+                out = F.scaled_dot_product_attention(
+                    *ins, attn_mask=mask, is_causal=is_causal)
+                g = torch.autograd.grad(out, ins, do4, retain_graph=True)
+                ms = time_ms(torch, lambda: torch.autograd.grad(
+                    out, ins, do4, retain_graph=True), iters=iters)
+        except RuntimeError as e:
+            refused[backend.name] = str(e).splitlines()[0][:160]
+            continue
+        gq = g[0].transpose(1, 2)
+        gk, gv = (x.transpose(1, 2).reshape(B, Sk, Hk, G, D).sum(3)
+                  for x in g[1:])
+        err = max((a.float() - w).abs().max().item() / w.abs().max().item()
+                  for a, w in zip((gq, gk, gv), want))
+        return ms, backend.name, err, refused
+    return None, None, None, refused
+
+
+def check_flash_bwd_path(torch, dev, gen, *, B, S, Hq, Hk, D, dtype, causal,
+                         window, iters):
+    """A backward path beside bf16 at head_dim 64 / 128 at a training shape:
+    dQ, dK, dV against autograd of the plain version (f32 on the same
+    inputs) within ``BWD_REL_TOL`` row by row (bf16) or ``BWD_F32_TOL`` of
+    the largest |value| (f32); atoms (n = 5, permuted) bit-equal to one;
+    every tile launched alone, in a random order, into one set of NaN
+    outputs, bit-equal to one atom of every tile with nothing left NaN; a
+    sample of single tiles writing exactly the rows ``ops.bwd_tile`` maps.
+    Then the delta pass and one atom of every tile timed beside the plain
+    version, the library's backward and the bound."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    dt = getattr(torch, dtype)
+    q, do = (_randn(torch, gen, (B, S, Hq, D), dt, dev) for _ in range(2))
+    k, v = (_randn(torch, gen, (B, S, Hk, D), dt, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    what = (f"flash_attention_bwd {dtype} B={B} S={S} Hq={Hq} Hk={Hk} D={D} "
+            f"window={window}")
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out = ref.attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(out, leaves, do.float(), retain_graph=True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    if dt == torch.float32:
+        err = max(((g - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(got, want))
+        limit = BWD_F32_TOL
+    else:
+        err = max(bwd_row_err(g, w).max().item() for g, w in zip(got, want))
+        limit = BWD_REL_TOL
+    if not (err <= limit and all(bool(torch.isfinite(g).all()) for g in got)):
+        fail(f"{what}: reads {err} against autograd of the plain version "
+             f"(limit {limit})")
+    five = ops.flash_attention_bwd(q, k, v, o, do, lse, n_atoms=5,
+                                   order=(3, 0, 4, 2, 1), **kw)
+    if not all(_same(torch, a, b) for a, b in zip(got, five)):
+        fail(f"{what}: atoms (n=5, permuted) do not compose bit for bit")
+    delta = ops.attention_delta(o, do)
+    total = ops.bwd_tile_space(q, k)
+    perm = torch.randperm(total, generator=torch.Generator().manual_seed(0))
+    alone = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    for t in perm.tolist():
+        ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, *alone,
+                                     start=t, num_tiles=1, **kw)
+    if not all(_same(torch, a, b) for a, b in zip(got, alone)):
+        fail(f"{what}: {total} tiles launched one at a time in a random "
+             f"order differ from one atom of them all")
+    n_dq = ref.bwd_tile_space(q, k, *ops.bwd_blocks(dt, D))[0]
+    sample = sorted({0, n_dq - 1, n_dq, total - 1, *perm[:4].tolist()})
+    for t in sample:
+        role, b, h, lo, hi = ops.bwd_tile(t, q, k)
+        part = [torch.full_like(x, float("nan")) for x in (q, k, v)]
+        ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, *part,
+                                     start=t, num_tiles=1, **kw)
+        mask = [torch.zeros(x.shape, dtype=torch.bool, device=dev)
+                for x in part]
+        if role == "dq":
+            mask[0][b, lo:hi, h] = True
+        else:
+            mask[1][b, lo:hi, h] = mask[2][b, lo:hi, h] = True
+        if not all(torch.equal(~torch.isnan(x), m) for x, m in
+                   zip(part, mask)):
+            fail(f"{what}: tile {t} does not write the rows bwd_tile maps")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+    def one():
+        d = ops.attention_delta(o, do)
+        ops.flash_attention_bwd_atom(q, k, v, do, lse, d, dq, dk, dv,
+                                     start=0, num_tiles=total, **kw)
+
+    ms = time_ms(torch, one, iters=iters)
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do.float(), retain_graph=True), iters=max(1, iters // 3))
+    library_ms, backend, lib_err, refused = (
+        library_bwd(torch, q, k, v, do, want, iters=iters, **kw)
+        if dev.type == "cuda" else (None, None, None, {}))
+    pairs = causal_pairs(S, window) if causal else S * S
+    flops = 10 * B * Hq * D * pairs
+    peak = H100.peak_flops if dt == torch.bfloat16 else H100.peak_flops_f32
+    n_bytes = (4 * B * S * Hq * D + 4 * B * S * Hk * D) * q.element_size() \
+        + 2 * B * Hq * S * 4       # q,o,do,dq; k,v,dk,dv; lse,delta
+    t_bytes = n_bytes / H100.hbm_bw * 1e3
+    t_ops = flops / peak * 1e3
+    return {"dtype": dtype, "blocks": ops.bwd_blocks(dt, D),
+            "max_abs_err": max((g.float() - w).abs().max().item()
+                               for g, w in zip(got, want)),
+            "err": err, "err_limit": limit,
+            "err_kind": ("max abs error / max|value|" if dt == torch.float32
+                         else "row by row, over the row's max|value|"),
+            "tiles": total, "tiles_one_at_a_time": "bit-equal",
+            "tile_map_checked": sample, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_backend": backend,
+            "library_err": lib_err, "library_refused": refused,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "peak_flops": peak, "flops": flops, "bytes": n_bytes,
+            "design_floor_ms": 14 * B * Hq * D * pairs / peak * 1e3,
+            "timed": "the delta pass and one atom of every tile"}
 
 
 def kernels_phase(torch, dev, real: bool):
@@ -1011,7 +1191,12 @@ def kernels_phase(torch, dev, real: bool):
                   "autograd of the plain version; the forward's lse against "
                   "the plain logsumexp; atoms (n=5) in permuted order "
                   "bit-equal to n=1; at the olmo-1b shape, dQ without delta "
-                  "and one dK tile zeroed read above that limit"])
+                  "and one dK tile zeroed read above that limit",
+                  "flash backward, bf16 head_dim 256 (window 2048, MQA) and "
+                  "f32 (olmo-1b's shape): every tile launched alone in a "
+                  "random order bit-equal to one atom of all; single tiles "
+                  "write what ops.bwd_tile maps; f32 within 1e-5 of "
+                  "max|value|"])
     return k1, k2, k3, bwd["olmo_train"]
 
 
@@ -1074,9 +1259,15 @@ def plain_attention():
     from repro_torch.kernels.flash_attention import ops as f_ops, ref as f_ref
     saved = (d_ops.decode_attention_atom, f_ops.flash_attention_atom,
              f_ops.flash_attention_bwd_atom, f_ops.attention_delta)
+
+    def bwd_atom(q, *a, **kw):      # at the tiles of the path q would take
+        bq, bk = f_ops.bwd_blocks(q.dtype, q.shape[-1])
+        return f_ref.flash_attention_bwd_atom_ref(q, *a, block_q=bq,
+                                                  block_k=bk, **kw)
+
     d_ops.decode_attention_atom = d_ref.decode_attention_atom_ref
     f_ops.flash_attention_atom = f_ref.flash_attention_atom_ref
-    f_ops.flash_attention_bwd_atom = f_ref.flash_attention_bwd_atom_ref
+    f_ops.flash_attention_bwd_atom = bwd_atom
     f_ops.attention_delta = f_ref.attention_delta_ref
     try:
         yield
@@ -1089,8 +1280,8 @@ def plain_attention():
 def backward_fault(torch, kind: str):
     """Harness-only: every backward launch of the pass with a planted
     fault: ``dk_tile`` zeroes the dK of the first dK/dV tile (as
-    ``ops.bwd_tile`` maps it: batch row 0, KV head 0, the first
-    ``BWD_BLOCK_K`` keys); ``no_delta`` takes dQ without delta (dS =
+    ``ops.bwd_tile`` maps it: batch row 0, KV head 0, the first block of
+    ``ops.bwd_blocks`` keys); ``no_delta`` takes dQ without delta (dS =
     P dP)."""
     from repro_torch.kernels.flash_attention import ops as f_ops, ref as f_ref
     saved = f_ops.flash_attention_bwd_atom
@@ -1100,8 +1291,8 @@ def backward_fault(torch, kind: str):
              **kw):
         saved(q, k, v, do, lse, delta, dq, dk, dv, start=start,
               num_tiles=num_tiles, **kw)
-        n_dq = f_ref.bwd_tile_space(q, k, f_ops.BWD_BLOCK_Q,
-                                    f_ops.BWD_BLOCK_K)[0]
+        n_dq = f_ref.bwd_tile_space(
+            q, k, *f_ops.bwd_blocks(q.dtype, q.shape[-1]))[0]
         if kind == "dk_tile" and start <= n_dq < start + num_tiles:
             _, b, hk, c0, c1 = f_ops.bwd_tile(n_dq, q, k)
             dk[b, c0:c1, hk] = 0
@@ -1274,7 +1465,8 @@ def routing_flips(torch, a, b) -> int:
 
 # kernel kinds of a profile, by words of the kernel's name (first match)
 KERNEL_KINDS = (
-    ("flash_attention_bwd", ("flash_attn_bwd", "delta_kernel")),
+    ("flash_attention_bwd", ("flash_attn_bwd", "bwd_mma_kernel",
+                             "bwd_f32_kernel", "delta_kernel")),
     ("flash_attention", ("flash_attn",)),
     ("decode_attention", ("decode_",)),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "matmul")),
@@ -1700,26 +1892,25 @@ def _grad_readings(torch, params, got, want) -> dict:
     return out
 
 
-def train_vs_plain(torch, dev, real: bool) -> dict:
-    """One gradient of the train step at full width and 2 layers, the same
-    params and batch with the kernels and with plain attention (forward and
-    backward): the loss and every layer slice of every gradient leaf within
-    ``TRAIN_LOSS_TOL`` / ``TRAIN_GRAD_TOL``; two planted backward faults
-    must read above that limit."""
-    import dataclasses
-    from repro_torch.configs.registry import get_config
+def kernels_vs_plain(torch, dev, cfg, *, B: int, S: int, loss_tol: float,
+                     grad_tol: float, faults=("dk_tile", "no_delta"),
+                     seed: int = 1) -> dict:
+    """One gradient of the train step of ``cfg``, the same params and batch
+    with the kernels and with plain attention (forward and backward): the
+    loss within ``loss_tol`` and every layer slice of every gradient leaf
+    within ``grad_tol`` (relative L2); each planted backward fault of
+    ``faults`` must read above that limit."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer
     from repro_torch.models.registry import init_model
     from repro_torch.train.step import TrainConfig, loss_and_grads
-    cfg = get_config("olmo-1b")
-    cfg = dataclasses.replace(cfg if real else cfg.reduced(), n_layers=2)
-    params = init_model(cfg, seed=1, device=dev)
-    B, S = (2, 2048) if real else (2, 32)
+    params = init_model(cfg, seed=seed, device=dev)
     batch = to_device(next(SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-        seed=1)).batches()), dev)
+        seed=seed)).batches()), dev)
     tc = TrainConfig()
+    n_attn = transformer.attention_layers(cfg)
 
     def run():
         loss, _, g = loss_and_grads(cfg, tc, params, batch)
@@ -1730,33 +1921,49 @@ def train_vs_plain(torch, dev, real: bool) -> dict:
     after = read_counts()
     if dev.type == "cuda" and (
             after["flash_attention_bwd"] - before["flash_attention_bwd"]
-            != cfg.n_layers):
-        fail(f"train_vs_plain: {after} - {before}: not one backward launch "
-             f"a layer")
+            != n_attn):
+        fail(f"{cfg.name} kernels vs plain: {after} - {before}: not one "
+             f"backward launch an attention layer")
     with plain_attention():
         loss_p, g_p = run()
     sound = _grad_readings(torch, params, g_k, g_p)
-    res = {"layers": cfg.n_layers, "batch": B, "seq": S,
+    res = {"layers": cfg.n_layers, "dtype": cfg.dtype, "batch": B, "seq": S,
            "loss_kernels": loss_k, "loss_plain": loss_p,
-           "loss_err": abs(loss_k - loss_p), "loss_limit": TRAIN_LOSS_TOL,
-           "grad_rel_l2": sound, "grad_limit": TRAIN_GRAD_TOL,
+           "loss_err": abs(loss_k - loss_p), "loss_limit": loss_tol,
+           "grad_rel_l2": sound, "grad_limit": grad_tol,
+           "attention_grad_rel_l2_max": max(
+               (v for k, v in sound.items() if "attn" in k), default=None),
            "planted_faults": {}}
-    if dev.type == "cuda" and not (res["loss_err"] <= TRAIN_LOSS_TOL and
-                                   max(sound.values()) <= TRAIN_GRAD_TOL):
-        fail(f"train step, kernels vs plain attention: loss {loss_k} vs "
-             f"{loss_p}, gradients {sound}")
-    for kind in ("dk_tile", "no_delta"):
+    if dev.type == "cuda" and not (res["loss_err"] <= loss_tol and
+                                   max(sound.values()) <= grad_tol):
+        fail(f"{cfg.name} train step, kernels vs plain attention: loss "
+             f"{loss_k} vs {loss_p}, gradients {sound}")
+    for kind in faults:
         with backward_fault(torch, kind) as hits:
-            loss_f, g_f = run()
+            _, g_f = run()
         reading = max(_grad_readings(torch, params, g_f, g_p).values())
         res["planted_faults"][kind] = reading
-        if hits[0] != cfg.n_layers:
+        if hits[0] != n_attn:
             fail(f"planted backward fault {kind} reached {hits[0]} launches")
-        if dev.type == "cuda" and not reading > TRAIN_GRAD_TOL:
+        if dev.type == "cuda" and not reading > grad_tol:
             fail(f"planted backward fault {kind} reads {reading}, not above "
-                 f"the limit {TRAIN_GRAD_TOL}")
-    del params, g_k, g_p, g_f
+                 f"the limit {grad_tol}")
+        del g_f
+    del params, g_k, g_p
     return res
+
+
+def train_vs_plain(torch, dev, real: bool) -> dict:
+    """``kernels_vs_plain`` at full width and 2 layers of olmo-1b (batch 2 x
+    2048), within ``TRAIN_LOSS_TOL`` / ``TRAIN_GRAD_TOL``, with both planted
+    backward faults."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("olmo-1b")
+    cfg = dataclasses.replace(cfg if real else cfg.reduced(), n_layers=2)
+    B, S = (2, 2048) if real else (2, 32)
+    return kernels_vs_plain(torch, dev, cfg, B=B, S=S,
+                            loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL)
 
 
 def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
@@ -1858,6 +2065,135 @@ def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
     return launches, dict(state=state, cfg=cfg, tc=tc, batch=batch, seq=seq,
                           losses=losses, median_step_ms=med * 1e3,
                           step_flops=step_flops, launches=launches)
+
+
+def train_hybrid_rows(real: bool) -> list:
+    """(row, cfg, steps, batch, seq, n_micro) of ``train_hybrid``: full
+    width, then the rehearsal's toy (the reduced configs at the same head
+    dims)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    rg, olmo = get_config("recurrentgemma-9b"), get_config("olmo-1b")
+    if real:
+        return [("recurrentgemma_d256",
+                 dataclasses.replace(rg, n_layers=len(rg.hybrid.pattern)),
+                 4, 2, 4096, 1),
+                ("olmo_f32",
+                 dataclasses.replace(olmo, n_layers=2, dtype="float32"),
+                 2, 2, 1024, 1)]
+    return [("recurrentgemma_d256",
+             dataclasses.replace(rg.reduced(), d_head=256), 2, 2, 136, 1),
+            ("olmo_f32", dataclasses.replace(olmo.reduced(), d_head=64,
+                                             dtype="float32"), 2, 2, 136, 1)]
+
+
+def train_hybrid_phase(torch, dev, *, real: bool) -> dict:
+    """The backward's paths beside bf16 at head_dim 64 / 128 on the training
+    path, through ``repro_torch.launch.train.train``, random weights from a
+    seed, remat none, f32 moments, counts set to 0 just before each row and
+    read just after (K2, K2-bwd and delta once an attention layer and
+    microbatch):
+
+    * recurrentgemma-9b at its published widths (d_model 4096, 16 heads of
+      256 on 1 KV head, d_ff 12288, lru_width 4096, vocab 256000, window
+      2048), depth cut to one pattern period (rec, rec, attn): 4 steps of
+      2 x 4096 tokens, so the window skips blocks (the mma.sync path);
+    * olmo-1b's widths at 2 layers in float32: 2 steps of 2 x 1024 (the f32
+      path).
+
+    Each row: finite losses, ms a step, one more step profiled (its device
+    idle share), peak memory, the parameter count of the state; then
+    ``kernels_vs_plain`` on the row's config (one layer-gradient step, the
+    same inputs): bf16 within ``TRAIN_LOSS_TOL`` / ``TRAIN_GRAD_TOL`` with
+    dQ taken without delta planted (one zeroed 64-key dK tile of 8192 keys
+    moves recurrentgemma's gradients by less than that limit, so it is not
+    planted here), f32 within ``TRAIN_F32_LOSS_TOL`` /
+    ``TRAIN_F32_GRAD_TOL`` with both faults.  Returns the launches summed
+    over both rows."""
+    import statistics
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import to_device, train
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.train.step import TrainConfig, make_train_step
+    total = dict.fromkeys(read_counts(), 0)
+    for row, cfg, steps, batch, seq, n_micro in train_hybrid_rows(real):
+        tc = TrainConfig(remat="none", n_micro=n_micro,
+                         moment_dtype="float32", total_steps=steps,
+                         warmup_steps=1)
+        step_s, last = [], [0.0]
+
+        def on_step(step, metrics):
+            if real:
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - last[0])
+            last[0] = now
+
+        if real:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        last[0] = t0 = time.perf_counter()
+        state, losses = train(cfg, steps=steps, batch=batch, seq=seq, tc=tc,
+                              seed=0, device=dev, verbose=False,
+                              on_step=on_step)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() if real else None
+        n_attn = transformer.attention_layers(cfg)
+        per = steps * n_micro * n_attn
+        want = {"flash_attention": per, "flash_attention_bwd": per,
+                "attention_delta": per, "decode_attention": 0,
+                "atom_matmul": 0}
+        if dev.type == "cuda" and launches != want:
+            fail(f"train_hybrid {row}: launch counts {launches} but the "
+                 f"path implies {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train_hybrid {row}: losses {losses} not finite")
+        for k in total:
+            total[k] += launches[k]
+        n_params = count_params(state.params)
+        med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+        profile = None
+        if real:
+            _, step_fn = make_train_step(cfg, tc, device=dev)
+            b = to_device(next(SyntheticLM(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=seq,
+                global_batch=batch)).batches()), dev)
+
+            def one_step():
+                step_fn(state, b)
+                torch.cuda.synchronize()
+
+            profile = profile_windows(torch, {"train_step": one_step})[
+                "train_step"]
+            del b, step_fn
+        del state
+        if real:
+            torch.cuda.empty_cache()
+        f32 = cfg.dtype == "float32"
+        compare = kernels_vs_plain(
+            torch, dev, cfg, B=batch, S=seq,
+            loss_tol=TRAIN_F32_LOSS_TOL if f32 else TRAIN_LOSS_TOL,
+            grad_tol=TRAIN_F32_GRAD_TOL if f32 else TRAIN_GRAD_TOL,
+            faults=("dk_tile", "no_delta") if f32 else ("no_delta",))
+        if real:
+            torch.cuda.empty_cache()
+        emit("train_hybrid", row=row, arch=cfg.name, full_size=real,
+             n_layers=cfg.n_layers, d_model=cfg.d_model,
+             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+             head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+             vocab_size=cfg.vocab_size,
+             window=cfg.hybrid.window if cfg.hybrid else 0,
+             dtype=cfg.dtype, params=n_params, steps=steps, batch=batch,
+             seq=seq, n_micro=n_micro, remat=tc.remat,
+             moment_dtype=tc.moment_dtype, losses=losses, seconds=seconds,
+             step_ms=[x * 1e3 for x in step_s], median_step_ms=med * 1e3,
+             tokens_per_s=batch * seq / med,
+             device_idle_share=profile and profile["device_idle_share"],
+             profile=profile, peak_memory_bytes=peak, launches=launches,
+             expected_launches=want, kernels_vs_plain=compare)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2818,6 +3154,193 @@ def ctl_phase(real: bool) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the port's examples and scripts
+# ---------------------------------------------------------------------------
+
+# the host scripts (the simulator and the control plane: no kernel, no
+# torch), each its own process, all started together at the phase's start
+HOST_SCRIPTS = {
+    "multitenant_serving_torch": ["examples/multitenant_serving_torch.py",
+                                  "--profile", "h100"],
+    "rightsizing_dvfs_torch": ["examples/rightsizing_dvfs_torch.py",
+                               "--profile", "h100"],
+    "parity_check_torch_h100": ["scripts/parity_check_torch.py", "2.0",
+                                "--profile", "h100"],
+    "parity_check_torch_a100": ["scripts/parity_check_torch.py", "2.0",
+                                "--profile", "a100"],
+    "ctl_smoke_torch": ["scripts/ctl_smoke_torch.sh"],
+}
+HOST_SCRIPT_WAIT_S = 600
+
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _in_process(torch, real: bool, fn):
+    """``fn()`` with its standard output kept and the kernels' counts set to
+    0 just before and read just after: (its result, seconds, launches, the
+    last lines it printed)."""
+    import io
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    if real:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if real:
+        torch.cuda.empty_cache()
+    return out, seconds, launches, buf.getvalue().splitlines()[-6:]
+
+
+def _multitenant_rows(lines) -> dict:
+    rows = {}
+    for line in lines[1:]:
+        f = line.split()
+        rows[f[0]] = {"hpA_p99_ms": float(f[1][:-2]),
+                      "vs_ideal": float(f[2][:-1]),
+                      "hpA_slo_pct": float(f[3][:-1]), "hpB_done": int(f[4]),
+                      "be_done": int(f[5]), "util": float(f[6])}
+    return rows
+
+
+def examples_phase(torch, dev, *, real: bool) -> None:
+    """The port's examples and scripts as a user runs them, one ``examples``
+    line each (wall seconds, exit code 0, the script's headline numbers,
+    the kernels' launches counted on that line, not added to the main
+    paths'): ``quickstart_torch`` (full-width olmo-1b on the card: 20 train
+    steps, 6 served requests, the simulator's LithOS-vs-MPS lines on
+    ``h100``) and ``train_lm_torch`` (60 steps with checkpoints in a
+    temporary directory, then ``--resume``: restored at step 60, nothing
+    left to do) in this process; the simulator examples at ``h100``,
+    ``parity_check_torch`` at horizon 2.0 on both profiles and
+    ``ctl_smoke_torch.sh`` as processes of their own, started together
+    first.  Any non-zero exit or failed assert fails the smoke.  The
+    rehearsal takes the reduced quickstart and 3 + 2 steps of train_lm."""
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    logs = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    started = {}
+    for name, args in HOST_SCRIPTS.items():
+        if not real and args[0].endswith("parity_check_torch.py"):
+            args = [args[0], "0.5", *args[2:]]
+        cmd = (["bash", *args] if args[0].endswith(".sh")
+               else [sys.executable, *args])
+        log = open(os.path.join(logs, name), "w+")
+        started[name] = (cmd, log, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True))
+    ended = {}
+
+    def watch(name, t0, proc):        # each script's own wall time
+        proc.wait()
+        ended[name] = time.perf_counter() - t0
+
+    for name, (_, _, t0, proc) in started.items():
+        threading.Thread(target=watch, args=(name, t0, proc),
+                         daemon=True).start()
+    try:
+        qs = _example("quickstart_torch")
+        argv = [] if real else ["--reduced", "--device", "cpu"]
+        out, seconds, launches, tail = _in_process(
+            torch, real, lambda: qs.main(argv))
+        if not all(math.isfinite(x) for x in out["losses"]):
+            fail(f"quickstart_torch: losses {out['losses']}")
+        emit("examples", script="examples/quickstart_torch.py", argv=argv,
+             exit_code=0, seconds=seconds, part_seconds=out["seconds"],
+             loss_first=out["losses"][0], loss_last=out["losses"][-1],
+             served=len(out["outputs"]), sample_tokens=out["outputs"][0],
+             sim=[line.strip() for line in out["sim"]], launches=launches)
+
+        tl = _example("train_lm_torch")
+        d = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+        try:
+            for resume in (False, True):
+                argv = ["--ckpt-dir", d, *(["--resume"] if resume else [])]
+                if real:
+                    def go(argv=argv):
+                        return tl.main(argv)
+                else:       # a few steps on the CPU: no loss assert
+                    steps = 5 if resume else 3
+
+                    def go(steps=steps, resume=resume):
+                        return tl.run(tl.config(), steps=steps, batch=4,
+                                      seq=128, ckpt_dir=d, resume=resume,
+                                      device="cpu")
+                out, seconds, launches, tail = _in_process(torch, real, go)
+                losses = out["losses"]
+                # the resumed run restores the last step and, at the same
+                # --steps, has nothing left to do
+                if resume and real and (losses or not any(
+                        "nothing to do" in x for x in tail)):
+                    fail(f"train_lm_torch {argv}: {losses}, {tail}")
+                if not (resume and real) and not (
+                        losses and all(math.isfinite(x) for x in losses)):
+                    fail(f"train_lm_torch {argv}: losses {losses}")
+                emit("examples", script="examples/train_lm_torch.py",
+                     argv=argv, exit_code=0, seconds=seconds,
+                     steps_run=len(losses),
+                     loss_first=losses[0] if losses else None,
+                     loss_last=losses[-1] if losses else None,
+                     tokens_per_s=(out["tokens"] / out["seconds"]
+                                   if losses else None),
+                     coordinator_events=out["coordinator"].events,
+                     printed=tail, launches=launches)
+                del out
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        if real:
+            torch.cuda.empty_cache()
+
+        t_first = min(t0 for _, _, t0, _ in started.values())
+        while len(ended) < len(started):
+            if time.perf_counter() - t_first > HOST_SCRIPT_WAIT_S:
+                fail(f"{sorted(set(started) - set(ended))}: no end within "
+                     f"{HOST_SCRIPT_WAIT_S} s")
+            time.sleep(0.05)
+        for name, (cmd, log, _, proc) in started.items():
+            log.seek(0)
+            text = log.read()
+            seconds = ended[name]
+            if proc.returncode != 0:
+                fail(f"{name} ({' '.join(cmd)}) exited "
+                     f"{proc.returncode}:\n{text[-3000:]}")
+            lines = text.strip().splitlines()
+            head = {}
+            if name.startswith("multitenant"):
+                head["systems"] = _multitenant_rows(lines)
+            elif name.startswith("rightsizing"):
+                head["slips"] = [x for x in lines if x.startswith("slip=")]
+            elif name.startswith("parity"):
+                head["ok"] = sum(x.startswith("OK") for x in lines)
+                head["fail"] = sum(x.startswith("FAIL") for x in lines)
+            else:
+                head["last_line"] = lines[-1]
+            emit("examples", script=" ".join(cmd[1:]), exit_code=0,
+                 seconds=seconds, launches="none: a process of its own on "
+                 "the host (the simulator / control plane imports no torch)",
+                 **head)
+    finally:
+        for _, log, _, proc in started.values():
+            if proc.poll() is None:     # the script and whatever it started
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            log.close()
+        shutil.rmtree(logs, ignore_errors=True)
+
+
 def main(argv) -> int:
     rehearse = "--rehearse" in argv
     import torch
@@ -2893,6 +3416,9 @@ def main(argv) -> int:
     # its final state checkpointed, restored and resumed
     runs.append(checkpoint_phase(torch, dev, train_run, real=real))
     del train_run["state"]
+    # the backward's other paths: recurrentgemma-9b's period at head_dim 256
+    # (bf16, window 2048, MQA) and olmo-1b's widths in float32
+    runs.append(train_hybrid_phase(torch, dev, real=real))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     # the same training over a one-rank DeviceMesh (DTensor state), and the
     # dry-run of full-size cells on a fake 256-rank mesh
@@ -2911,6 +3437,8 @@ def main(argv) -> int:
     emit("ctl", nvidia_smi=smi, profile="h100", **ctl_phase(real))
     if any(read_counts().values()):
         fail(f"lithos_node / ctl launched kernels: {read_counts()}")
+    # the port's examples and scripts, as a user runs them
+    examples_phase(torch, dev, real=real)
 
     if rehearse:
         print("chip_smoke: rehearsal finished; nothing was measured",

@@ -596,8 +596,11 @@ class VecSimulator(Simulator):
                 return True
             slot = self._slot_of_kid[kid]
             if self._s_ov[slot] > 1e-12 or self._s_div[slot] > 1e-9:
-                self._schedule_completion(ek)   # stale estimate; refresh
-                return True
+                # stale estimate: refresh it unless it is below the clock's
+                # resolution at this time (as the scalar engine does)
+                if self.now + self._eta_scalar(slot) > self.now:
+                    self._schedule_completion(ek)
+                    return True
             self._complete(ek)
         elif kind == "fswitch":
             self.freq = payload

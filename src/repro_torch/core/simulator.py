@@ -458,8 +458,13 @@ class Simulator:
             if ek is None or ek.gen != gen:
                 return True
             if ek.overhead_left > 1e-12 or ek.div_left > 1e-9:
-                self._schedule_completion(ek)   # stale estimate; refresh
-                return True
+                # stale estimate: refresh it, unless what is left takes less
+                # than the clock resolves at this time (now + eta == now),
+                # where the refresh would fire at this instant forever
+                if self.now + ek.eta(self.freq,
+                                     self.device.occupancy) > self.now:
+                    self._schedule_completion(ek)
+                    return True
             self._complete(ek)
         elif kind == "fswitch":
             self.freq = payload

@@ -14,11 +14,12 @@ charge the kernels' work to it.
 
 The forward can also write each row's log-sum-exp (``lse``).  The backward
 (``csrc/flash_attention_bwd.cu``) takes it: a ``delta`` pass, then atoms of
-its own tile space, dQ tiles ``(B*Hq) x ceil(Sq/BWD_BLOCK_Q)`` followed by
-dK/dV tiles ``(B*Hk) x ceil(Sk/BWD_BLOCK_K)``, each owned by one thread
-block, numbered as ``bwd_tile`` says.  ``FlashAttention`` joins the two for
-autograd.  The backward kernel takes bfloat16 at head_dim 64 and 128; any
-other CUDA operand raises (ROADMAP B4).
+its own tile space, dQ tiles ``(B*Hq) x ceil(Sq/block_q)`` followed by
+dK/dV tiles ``(B*Hk) x ceil(Sk/block_k)``, each owned by one thread block,
+numbered as ``bwd_tile`` says; ``bwd_blocks(dtype, head_dim)`` gives the
+blocks of the path that takes them.  ``FlashAttention`` joins the two
+for autograd.  The backward kernel takes bfloat16 and float32 at head_dim
+64, 128 and 256; any other CUDA operand raises.
 """
 from __future__ import annotations
 
@@ -45,11 +46,7 @@ BLOCK_Q = 64
 # Keys of a KV block that a bf16 tile visits (``TBK`` of the .cu's wgmma
 # path, exported and checked at load); ``core/llm_costs.py`` pads to it.
 KEY_BLOCK = 64
-# The backward's tiles: query rows of a dQ tile and keys of a dK/dV tile,
-# each 64 rows for each of the two consumer warpgroups of its thread block.
-BWD_BLOCK_Q = 128
-BWD_BLOCK_K = 128
-BWD_HEAD_DIMS = (64, 128)         # the backward kernel's bf16 head dims
+BWD_HEAD_DIMS = (64, 128, 256)    # the backward kernel's head dims, both dtypes
 _lib = None
 _bwd_lib = None
 
@@ -211,13 +208,17 @@ def _bwd_library():
         for fn in (lib.flash_attention_bwd_block_q,
                    lib.flash_attention_bwd_block_k):
             fn.restype = ctypes.c_int
-            fn.argtypes = []
-        if (lib.flash_attention_bwd_block_q(),
-                lib.flash_attention_bwd_block_k()) != (BWD_BLOCK_Q,
-                                                      BWD_BLOCK_K):
-            raise RuntimeError("csrc/flash_attention_bwd.cu and ops."
-                               "BWD_BLOCK_Q / BWD_BLOCK_K disagree on the "
-                               "tiles")
+            fn.argtypes = [ctypes.c_int] * 2
+        for dtype in (torch.bfloat16, torch.float32):
+            code = build.DTYPE_CODES[str(dtype)]
+            for D in BWD_HEAD_DIMS:
+                got = (lib.flash_attention_bwd_block_q(code, D),
+                       lib.flash_attention_bwd_block_k(code, D))
+                if got != bwd_blocks(dtype, D):
+                    raise RuntimeError(
+                        f"csrc/flash_attention_bwd.cu and ops.bwd_blocks "
+                        f"disagree on the tiles of {dtype} at head_dim {D}: "
+                        f"{got} against {bwd_blocks(dtype, D)}")
         fn = lib.flash_attention_bwd_delta
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
@@ -230,18 +231,36 @@ def _bwd_library():
     return _bwd_lib
 
 
+def bwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
+    """(query rows of a dQ tile, keys of a dK/dV tile) of the backward path
+    that takes ``dtype`` at ``head_dim`` (exported by the .cu and checked at
+    load): bf16 up to head_dim 128 is the wgmma path, two consumer
+    warpgroups of 64 rows each; bf16 at 256 the mma.sync path, eight warps
+    of 16 query rows, and 64 keys split between four dK and four dV warps;
+    f32 the CUDA-core path, 64 rows.  The CPU's plain atoms take the same
+    tiles, so an atom writes the same rows on either device."""
+    if dtype == torch.bfloat16:
+        return (128, 128) if head_dim <= 128 else (128, 64)
+    return (64, 64)
+
+
+def _blocks(q) -> tuple[int, int]:
+    return bwd_blocks(q.dtype, q.shape[-1])
+
+
 def bwd_tile_space(q, k) -> int:
     """Schedulable tiles of the backward: dQ tiles of q [B,Sq,Hq,D], then
-    dK/dV tiles of k [B,Sk,Hk,D]."""
-    n_dq, n_kv = ref.bwd_tile_space(q, k, BWD_BLOCK_Q, BWD_BLOCK_K)
+    dK/dV tiles of k [B,Sk,Hk,D], at ``bwd_blocks`` of q."""
+    n_dq, n_kv = ref.bwd_tile_space(q, k, *_blocks(q))
     return n_dq + n_kv
 
 
 def bwd_tile(t: int, q, k) -> tuple:
     """What tile ``t`` of ``bwd_tile_space`` writes (``ref.bwd_tile`` at the
-    kernel's tiles): ("dq", b, h, r0, r1), query rows [r0, r1) of dq[b, :,
-    h], or ("dkv", b, hk, c0, c1), keys [c0, c1) of dk, dv[b, :, hk]."""
-    return ref.bwd_tile(t, q, k, BWD_BLOCK_Q, BWD_BLOCK_K)
+    kernel's tiles for q): ("dq", b, h, r0, r1), query rows [r0, r1) of
+    dq[b, :, h], or ("dkv", b, hk, c0, c1), keys [c0, c1) of dk, dv[b, :,
+    hk]."""
+    return ref.bwd_tile(t, q, k, *_blocks(q))
 
 
 def _check_bwd_cuda(tensors) -> int:
@@ -249,11 +268,10 @@ def _check_bwd_cuda(tensors) -> int:
     for name, t in tensors:
         code = build.check_attention_operand("flash attention backward",
                                              name, t)
-        if t.dtype != torch.bfloat16 or t.shape[-1] not in BWD_HEAD_DIMS:
+        if t.shape[-1] not in BWD_HEAD_DIMS:
             raise ValueError(
-                f"flash attention backward kernel takes bfloat16 at head_dim "
-                f"in {BWD_HEAD_DIMS}, not {t.dtype} at {t.shape[-1]} ({name});"
-                f" float32 and head_dim 256 are ROADMAP B4")
+                f"flash attention backward kernel takes head_dim in "
+                f"{BWD_HEAD_DIMS}, not {t.shape[-1]} ({name})")
     return code
 
 
@@ -309,11 +327,12 @@ def flash_attention_bwd_atom(q, k, v, do, lse, delta, dq, dk, dv, *,
     if not (0 <= start and 0 <= num_tiles and start + num_tiles <= total):
         raise ValueError(f"backward atom [{start}, {start}+{num_tiles}) "
                          f"outside [0, {total})")
+    block_q, block_k = _blocks(q)
     if q.device.type == "cpu":
         return flash_attention_bwd_atom_ref(
             q, k, v, do, lse, delta, dq, dk, dv, start=start,
             num_tiles=num_tiles, causal=causal, window=window,
-            block_q=BWD_BLOCK_Q, block_k=BWD_BLOCK_K)
+            block_q=block_q, block_k=block_k)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention backward has a CUDA kernel and "
                            f"a CPU version; no path for device {q.device}")
@@ -326,7 +345,7 @@ def flash_attention_bwd_atom(q, k, v, do, lse, delta, dq, dk, dv, *,
         err = _bwd_library().flash_attention_bwd_atom(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), start, num_tiles, -(-Sq // BWD_BLOCK_Q), B, Hq,
+            dv.data_ptr(), start, num_tiles, -(-Sq // block_q), B, Hq,
             Hq // Hk, Sq, Sk, D, int(causal), int(window), code, *ts,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

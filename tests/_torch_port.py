@@ -20,15 +20,18 @@ def to_numpy(tree):
 
 
 def make_pair(arch: str, *, dtype: str = "float32", seed: int = 0,
-              jitter: float = 0.0):
-    """(jax cfg, jax params, port cfg, port params) for reduced ``arch``.
+              jitter: float = 0.0, **fields):
+    """(jax cfg, jax params, port cfg, port params) for reduced ``arch``,
+    with ``fields`` (``d_head=256``, say) replaced in both configs.
 
     The JAX package initialises; the port receives the same numbers.  With
     ``jitter`` the leaves that initialise to constants (norm scales, biases)
     are perturbed from a numpy seed so that a test can tell them apart from
     their defaults."""
-    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype)
-    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype,
+                               **fields)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype,
+                               **fields)
     jparams = jax_init_model(jcfg, jax.random.PRNGKey(seed))
     if jitter:
         rng = np.random.default_rng(seed)

@@ -123,8 +123,10 @@ def test_backward_atom_writes_only_its_tiles():
     tiles writes exactly those rows, at the backward's own tiles (128 query
     rows, 128 keys; each part numbered heaviest causal block first)."""
     B, S, Hq, Hk, D = 1, 130, 2, 1, 16
-    assert (flash_ops.BWD_BLOCK_Q, flash_ops.BWD_BLOCK_K) == (128, 128)
     (q, _), (k, _), (v, _), (do, _) = _inputs(4, B, S, S, Hq, Hk, D)
+    # bf16 at head_dim <= 128: the wgmma path's tiles
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    assert flash_ops.bwd_blocks(q.dtype, D) == (128, 128)
     o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
     full = flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
     n_dq, n_kv = flash_ref.bwd_tile_space(q, k)
@@ -166,7 +168,7 @@ def test_backward_tiles_partition_the_outputs(case):
     for t in range(flash_ops.bwd_tile_space(q, k)):
         role, b, h, lo, hi = flash_ops.bwd_tile(t, q, k)
         assert flash_ops.bwd_tile(t, q, k) == flash_ref.bwd_tile(
-            t, q, k, flash_ops.BWD_BLOCK_Q, flash_ops.BWD_BLOCK_K)
+            t, q, k, *flash_ops.bwd_blocks(q.dtype, q.shape[-1]))
         seen[role][b, lo:hi, h] += 1
         assert (lo <= last[role]) if role == "dq" else (lo >= last[role])
         last[role] = lo
@@ -239,3 +241,42 @@ def test_backward_refuses_what_the_kernel_does_not_take():
             torch.zeros(1, 8, 4, 16), *[torch.zeros(1, 8, 4, 16)] * 3,
             torch.zeros(1, 8, 4), torch.zeros(1, 4, 8),
             *[torch.zeros(1, 8, 4, 16)] * 3, start=0, num_tiles=1)
+
+
+@pytest.mark.parametrize("dtype,D,blocks", [
+    (torch.bfloat16, 64, (128, 128)), (torch.bfloat16, 256, (128, 64)),
+    (torch.float32, 64, (64, 64)), (torch.float32, 256, (64, 64))],
+    ids=str)
+def test_backward_blocks_of_each_path_compose_in_any_order(dtype, D, blocks):
+    """Each kernel path's tiles (``ops.bwd_blocks``: the wgmma path, the
+    mma.sync path at head_dim 256, the f32 path): ``ref.bwd_tile`` at them
+    partitions the outputs, and the plain atoms, one tile at a time in a
+    random order, equal one atom of every tile bit for bit."""
+    assert flash_ops.bwd_blocks(dtype, D) == blocks
+    B, S, Hq, Hk, window = 1, 200, 4, 1, 90     # MQA, a window, ragged tails
+    rng = np.random.default_rng(D)
+    q, do = (torch.tensor(rng.standard_normal((B, S, Hq, 16)),
+                          dtype=torch.float32) for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((B, S, Hk, 16)),
+                         dtype=torch.float32) for _ in range(2))
+    o, lse = flash_ops.flash_attention(q, k, v, window=window,
+                                       return_lse=True)
+    delta = flash_ref.attention_delta_ref(o, do)
+    n_dq, n_kv = flash_ref.bwd_tile_space(q, k, *blocks)
+    seen = {"dq": torch.zeros(B, S, Hq, dtype=torch.int64),
+            "dkv": torch.zeros(B, S, Hk, dtype=torch.int64)}
+    for t in range(n_dq + n_kv):
+        role, b, h, lo, hi = flash_ref.bwd_tile(t, q, k, *blocks)
+        seen[role][b, lo:hi, h] += 1
+    assert (seen["dq"] == 1).all() and (seen["dkv"] == 1).all()
+    kw = dict(window=window, block_q=blocks[0], block_k=blocks[1])
+    one = [torch.zeros_like(t) for t in (q, k, v)]
+    flash_ref.flash_attention_bwd_atom_ref(q, k, v, do, lse, delta, *one,
+                                           start=0, num_tiles=n_dq + n_kv,
+                                           **kw)
+    got = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    for t in rng.permutation(n_dq + n_kv):
+        flash_ref.flash_attention_bwd_atom_ref(q, k, v, do, lse, delta, *got,
+                                               start=int(t), num_tiles=1,
+                                               **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, got))

@@ -717,12 +717,96 @@ def test_flash_bwd_kernel_tile_map(cuda, D, B, Sq, Sk, Hq, Hk, causal,
             assert torch.equal(g[m], f[m])
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
-                                     (torch.bfloat16, 256)])
-def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda, dtype, D):
-    q = torch.zeros(1, 64, 2, D, dtype=dtype, device=cuda)
+# the paths beside bf16 at head_dim 64 / 128: bf16 at 256 (mma.sync) and
+# f32 at every head dim (CUDA cores).  bf16 is held row by row
+# (``_bwd_row_err``); f32 against f32 differs only in summation order, ~1e-6
+# of a gradient's largest |value|, but a row whose gradient cancels (dP close
+# to delta) is ~1e-7 of that and reads the rounding of delta, so f32 is held
+# to 1e-5 of the tensor's largest |value| instead
+BWD_NEW_PATHS = [(torch.bfloat16, 256), (torch.float32, 64),
+                 (torch.float32, 128), (torch.float32, 256)]
+BWD_NEW_TOL = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-5}
+
+
+def _bwd_new_err(got, want):
+    if got.dtype == torch.float32:
+        return ((got - want).abs().max() / want.abs().max()).item()
+    return _bwd_row_err(got, want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("dtype,D", BWD_NEW_PATHS, ids=str)
+def test_flash_bwd_new_paths_match_plain_and_compose(cuda, dtype, D, seed):
+    """bf16 at head_dim 256 and f32 at 64 / 128 / 256: dQ, dK, dV against
+    the plain backward atoms in f32 on the same inputs (the same output and
+    lse), within ``BWD_NEW_TOL``; MQA, GQA, a
+    window, Sq != Sk, ragged tails; atoms in a random order bit-equal to
+    one."""
+    rng = np.random.default_rng(200 + seed + D)
+    Hk = int(rng.choice([1, 2]))
+    Hq = Hk * int(rng.choice([1, 4, 16]))
+    Sk = int(rng.integers(1, 300))
+    Sq = Sk if seed % 2 == 0 else int(rng.integers(1, 300))
+    causal = seed != 3
+    window = int(rng.integers(1, Sk + 1)) if seed == 1 else 0
+    q, do = (_randn(rng, (2, Sq, Hq, D), dtype, cuda) for _ in range(2))
+    k, v = (_randn(rng, (2, Sk, Hk, D), dtype, cuda) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    want = [torch.zeros(t.shape, device=cuda) for t in (q, k, v)]
+    bq, bk = flash_ops.bwd_blocks(dtype, D)
+    flash_bwd_atom_ref(q.float(), k.float(), v.float(), do.float(), lse,
+                       attention_delta_ref(o, do), *want, start=0,
+                       num_tiles=flash_ops.bwd_tile_space(q, k), block_q=bq,
+                       block_k=bk, **kw)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert _bwd_new_err(g, w) <= BWD_NEW_TOL[dtype]
+    n = flash_ops.bwd_tile_space(q, k)
+    order = tuple(int(i) for i in rng.permutation(min(n, 7)))
+    again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                          n_atoms=len(order), order=order,
+                                          **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,D", BWD_NEW_PATHS, ids=str)
+def test_flash_bwd_new_paths_tile_map(cuda, dtype, D):
+    """On the new paths too an atom of one tile writes exactly the rows
+    ``ops.bwd_tile`` gives it (at ``ops.bwd_blocks``), bit-equal to the
+    whole backward."""
+    rng = np.random.default_rng(D)
+    B, Sq, Sk, Hq, Hk = 1, 150, 150, 4, 1
+    q, do = (_randn(rng, (B, Sq, Hq, D), dtype, cuda) for _ in range(2))
+    k, v = (_randn(rng, (B, Sk, Hk, D), dtype, cuda) for _ in range(2))
+    kw = dict(causal=True, window=70)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    full = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    delta = flash_ops.attention_delta(o, do)
+    for t in range(flash_ops.bwd_tile_space(q, k)):
+        role, b, h, lo, hi = flash_ops.bwd_tile(t, q, k)
+        got = [torch.full_like(x, float("nan")) for x in (q, k, v)]
+        flash_ops.flash_attention_bwd_atom(q, k, v, do, lse, delta, *got,
+                                           start=t, num_tiles=1, **kw)
+        want = [torch.zeros(x.shape, dtype=torch.bool, device=cuda)
+                for x in got]
+        if role == "dq":
+            want[0][b, lo:hi, h] = True
+        else:
+            want[1][b, lo:hi, h] = want[2][b, lo:hi, h] = True
+        for g, f, m in zip(got, full, want):
+            assert torch.equal(~torch.isnan(g), m)
+            assert torch.equal(g[m], f[m])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda, dtype):
+    """A head dim no path takes (32) raises for a CUDA operand; nothing
+    falls back to the plain version."""
+    q = torch.zeros(1, 64, 2, 32, dtype=dtype, device=cuda)
     lse = torch.zeros(1, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP B4"):
+    with pytest.raises(ValueError, match="head_dim"):
         flash_ops.flash_attention_bwd(q, q, q, q, q, lse)
 
 

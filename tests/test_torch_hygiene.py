@@ -13,7 +13,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("*.py")))
+         + sorted((ROOT / "tools").glob("*.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py"))
+         + [ROOT / "scripts" / "parity_check_torch.py"])
 
 IMPORT = re.compile(
     r"^\s*(?:import\s+(?:jax|repro|ml_dtypes)(?:[.\s,]|$)"

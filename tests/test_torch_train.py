@@ -143,6 +143,41 @@ def test_train_loss_and_gradients_match_reference(arch):
     assert_grads_close(tg, jg)
 
 
+@pytest.mark.parametrize("arch,fields", [
+    ("recurrentgemma-9b", {"d_head": 256}), ("olmo-1b", {"d_head": 64})],
+    ids=["recurrentgemma-d256", "olmo-d64"])
+def test_backward_head_dims_of_the_card_match_reference(arch, fields):
+    """The head dims the attention backward now takes on the card, through
+    the training path in float32 (its f32 tiles, ``ops.bwd_blocks``):
+    recurrentgemma-9b at head_dim 256 with MQA and its window of 32 (40
+    positions, so the window cuts), olmo-1b at 64.  The loss and every
+    gradient against ``jax.value_and_grad`` of the reference."""
+    jcfg, jparams, tcfg, tparams = make_pair(arch, jitter=0.02, **fields)
+    assert transformer.attention_layers(tcfg) > 0
+    assert tcfg.head_dim == fields["d_head"]
+    jb, tb = _batch(tcfg, np.random.default_rng(4))
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jax_registry.train_loss(p, jcfg, jb, loss_chunk=16),
+        has_aux=True)(jparams)
+    calls = []
+    saved = flash_ops.flash_attention_bwd_atom
+
+    def bwd(q, *a, **kw):
+        calls.append((q.dtype, q.shape[-1]))
+        return saved(q, *a, **kw)
+
+    flash_ops.flash_attention_bwd_atom = bwd
+    try:
+        tl, _, tg = _grads_of(
+            lambda p: registry.train_loss(p, tcfg, tb, loss_chunk=16),
+            tparams)
+    finally:
+        flash_ops.flash_attention_bwd_atom = saved
+    assert calls and set(calls) == {(torch.float32, fields["d_head"])}
+    np.testing.assert_allclose(tl.item(), float(jl), **LOSS)
+    assert_grads_close(tg, jg)
+
+
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_gives_the_gradients_of_no_remat(remat):
     """``remat`` changes what the backward recomputes, not its result: the
