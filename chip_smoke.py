@@ -43,8 +43,8 @@ control plane (``ctl``: the served llama3-8b deployment submitted through
 ``launch.serve --ctl-state-dir`` beside a best-effort olmo-1b trainer,
 ``python -m repro_torch.ctl daemon`` killed with SIGKILL and restarted until
 both finish).  It trains recurrentgemma-9b's (rec, rec, attn) period at
-full width (head_dim 256, MQA, window 2048: the backward's ``mma.sync``
-path) and olmo-1b's widths in float32 (its CUDA-core path) through
+full width (head_dim 256, MQA, window 2048: the backward's ``wgmma`` path
+at head_dim 256) and olmo-1b's widths in float32 (its split-TF32 path) through
 ``launch.train.train`` (``train_hybrid``), and runs the port's examples and
 scripts as a user would (``examples``: quickstart at full-width olmo-1b,
 train_lm with a resume, the simulator examples, both engines' parity and
@@ -145,7 +145,8 @@ BWD_SHAPES = {
 # the backward's paths beside bf16 at head_dim 64 / 128 (B, S, Hq, Hk, D,
 # dtype, causal, window; full size, then the rehearsal's toy):
 # recurrentgemma-9b's training shape (head_dim 256, MQA, window 2048, 4096
-# tokens: the mma.sync path) and olmo-1b's at float32 (the CUDA-core path).
+# tokens: the wgmma path at head_dim 256) and olmo-1b's at float32 (the
+# split-TF32 path).
 # bf16 is held row by row to ``BWD_REL_TOL``; f32 against f32 differs only
 # in summation order, ~1e-6 of a gradient's largest |value|, but a row whose
 # gradient cancels reads the rounding of delta, so f32 is held to
@@ -155,9 +156,12 @@ BWD_PATH_SHAPES = {
                                     2048),
                                    (1, 150, 4, 1, 256, "bfloat16", True, 70)),
     "olmo_f32": ((2, 2048, 16, 16, 128, "float32", True, 0),
-                 (1, 100, 2, 2, 128, "float32", True, 0)),
+                 (1, 150, 2, 2, 128, "float32", True, 0)),
 }
 BWD_F32_TOL = 1e-5
+# dense TF32 on the tensor cores (H100 SXM data sheet, 700 W): the f32
+# backward's design floor takes each product as three TF32 products
+TF32_PEAK = 494.7e12
 # the train phase's kernel-vs-plain step (full-width olmo-1b, 2 layers, the
 # same params and batch): the loss, and every layer's slice of every
 # gradient leaf as its relative L2 error ||g_kernel - g_plain|| / ||g_plain||.
@@ -472,19 +476,24 @@ def check_matmul(torch, dev, gen, *, M, N, K, dtype, bm=128, bn=None,
     return err, took, cta
 
 
-def matmul_headline(torch, dev, gen, flush, iters, real):
+def matmul_headline(torch, dev, gen, flush, iters, real, dtype="bfloat16"):
     """The atomized matmul at the widest llama3-8b projection of a
-    1000-token prefill (w_i / w_g: 4096 -> 14336), one atom."""
+    1000-token prefill (w_i / w_g: 4096 -> 14336), one atom; bf16 takes the
+    wgmma route, float32 the cp.async route."""
     from repro_torch.kernels.atom_matmul import ops, ref
     from repro_torch.kernels.atoms import tile_count
     M, K, N = (1000, 4096, 14336) if real else (40, 64, 300)
-    dt = torch.bfloat16
+    dt = getattr(torch, dtype)
     a = _randn(torch, gen, (M, K), dt, dev)
     b = _randn(torch, gen, (K, N), dt, dev)
     want = ref.matmul_ref(a, b)
-    err, limit = _mm_err(torch, ops.atom_matmul(a, b), want, "bfloat16")
+    got = ops.atom_matmul(a, b)
+    err, limit = _mm_err(torch, got, want, dtype)
     if not err <= limit:
-        fail(f"atom_matmul at the projection shape: err {err} > {limit}")
+        fail(f"atom_matmul {dtype} at the projection shape: err {err} > "
+             f"{limit}")
+    route = (matmul_route(torch, ops, a, b, got, 256)[0]
+             if dev.type == "cuda" else "plain")
     # the kernel alone: one atom of every tile into an output made once, so
     # the memset of a fresh output is not timed
     c = torch.empty((M, N), dtype=dt, device=dev)
@@ -492,23 +501,25 @@ def matmul_headline(torch, dev, gen, flush, iters, real):
                                   num_tiles=tile_count(M, N, 256, 256))
     ms = time_ms(torch, one, iters=iters, flush=flush)
     host_ms = enqueue_ms(torch, one)
-    err_c = _mm_err(torch, c, want, "bfloat16")[0]
+    err_c = _mm_err(torch, c, want, dtype)[0]
     if not err_c <= limit:
-        fail(f"matmul_atom at the projection shape: err {err_c} > {limit}")
+        fail(f"matmul_atom {dtype} at the projection shape: err {err_c} > "
+             f"{limit}")
     plain_ms = time_ms(torch, lambda: ref.matmul_ref(a, b), iters=iters,
                        flush=flush)
     lib = lambda: torch.matmul(a, b)
-    lib_err = _mm_err(torch, lib(), want, "bfloat16")[0]
+    lib_err = _mm_err(torch, lib(), want, dtype)[0]
     if not lib_err <= limit:
         fail(f"library yardstick disagrees with the plain version: {lib_err}")
     library_ms = time_ms(torch, lib, iters=iters, flush=flush)
     n_bytes = (M * K + K * N + M * N) * a.element_size()
     flops = 2 * M * N * K
     t_bytes = n_bytes / H100.hbm_bw * 1e3
-    t_ops = flops / H100.peak_flops * 1e3
+    t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
+                     else H100.peak_flops_f32) * 1e3
     return {"shape": {"M": M, "K": K, "N": N, "block_m": 256,
-                      "block_n": 256},
-            "dtype": "bfloat16", "max_abs_err": err, "err_limit": limit,
+                      "block_n": 256}, "route": route,
+            "dtype": dtype, "max_abs_err": err, "err_limit": limit,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "enqueue_ms": host_ms,
@@ -516,15 +527,17 @@ def matmul_headline(torch, dev, gen, flush, iters, real):
             "l2": "cold (flushed before every launch)"}
 
 
-def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
-    """Decode attention at one of ``DECODE_SHAPES``, bf16, one atom over
-    every row, L2 flushed before each launch.  Held to ``headline_limit``,
-    which must lie below what a kernel that dropped one split would read."""
+def decode_headline(torch, dev, gen, flush, iters, shape="serving",
+                    dtype="bfloat16"):
+    """Decode attention at one of ``DECODE_SHAPES``, one atom over every
+    row, L2 flushed before each launch.  bf16 (the split route) is held to
+    ``headline_limit``, which must lie below what a kernel that dropped one
+    split would read; float32 (the f32 route, no split) to ``TOL``."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     B, Hq, Hk, D, S, lens = {**DECODE_SHAPES, **MODEL_DECODE_SHAPES}[
         shape][flush is None]
-    dt = torch.bfloat16
+    dt = getattr(torch, dtype)
     q = _randn(torch, gen, (B, Hq, D), dt, dev)
     kc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
     vc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
@@ -532,14 +545,18 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
     want = ref.decode_attention_ref(q, kc, vc, lens_t)
     got = ops.decode_attention(q, kc, vc, lens_t)
     err = (got.float() - want.float()).abs().max().item()
-    limit = headline_limit(want)
+    limit = (headline_limit(want) if dtype == "bfloat16"
+             else TOL[("decode", dtype)])
     if not err <= limit:
-        fail(f"decode_attention at the {shape} shape: err {err} > {limit}")
+        fail(f"decode_attention {dtype} at the {shape} shape: err {err} > "
+             f"{limit}")
     plan = decode_plan(torch, ops, q, kc, vc)
-    dropped = dropped_split_err(q, kc, vc, lens_t, plan["chunk"])
-    if not dropped > limit:
-        fail(f"decode_attention at the {shape} shape: a dropped split reads "
-             f"{dropped}, within the limit {limit}")
+    dropped = None
+    if dtype == "bfloat16":
+        dropped = dropped_split_err(q, kc, vc, lens_t, plan["chunk"])
+        if not dropped > limit:
+            fail(f"decode_attention at the {shape} shape: a dropped split "
+                 f"reads {dropped}, within the limit {limit}")
     clusters = (ops.max_active_clusters(D, plan["nsplit"])
                 if plan["route"] == "split" else None)
     # the kernel alone: one atom of every row into an output made once, so
@@ -566,10 +583,11 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving"):
     n_bytes = (2 * sum(lens) * Hk * D + 2 * B * Hq * D) * esz + 4 * B
     flops = 4 * sum(lens) * Hq * D
     t_bytes = n_bytes / H100.hbm_bw * 1e3
-    t_ops = flops / H100.peak_flops * 1e3
+    t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
+                     else H100.peak_flops_f32) * 1e3
     return {"shape": {"B": B, "Hq": Hq, "Hk": Hk, "D": D, "S": S, "lens": lens},
             "took": plan, "max_active_clusters": clusters,
-            "dtype": "bfloat16", "max_abs_err": err, "err_limit": limit,
+            "dtype": dtype, "max_abs_err": err, "err_limit": limit,
             "dropped_split_err": dropped, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -965,7 +983,9 @@ def check_flash_bwd_path(torch, dev, gen, *, B, S, Hq, Hk, D, dtype, causal,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "peak_flops": peak, "flops": flops, "bytes": n_bytes,
-            "design_floor_ms": 14 * B * Hq * D * pairs / peak * 1e3,
+            "design_floor_ms": (14 * B * Hq * D * pairs / peak * 1e3
+                                if dt == torch.bfloat16 else
+                                3 * 14 * B * Hq * D * pairs / TF32_PEAK * 1e3),
             "timed": "the delta pass and one atom of every tile"}
 
 
@@ -1150,6 +1170,11 @@ def kernels_phase(torch, dev, real: bool):
                                iters=30 if real else 1, shape="whisper_cross")
     k1_llava = decode_headline(torch, dev, gen, flush,
                                iters=30 if real else 1, shape="llava")
+    # the f32 routes of K1 and K3 at the same headline shapes
+    k1_f32 = decode_headline(torch, dev, gen, flush, iters=30 if real else 1,
+                             dtype="float32")
+    k3_f32 = matmul_headline(torch, dev, gen, flush, iters=10 if real else 1,
+                             real=real, dtype="float32")
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
     k2_window = flash_headline(torch, dev, gen, iters=10 if real else 1,
                                real=real, shape="recurrentgemma")
@@ -1167,10 +1192,12 @@ def kernels_phase(torch, dev, real: bool):
          decode_attention_long_context=k1_long,
          decode_attention_ring_d256=k1_ring,
          decode_attention_whisper_cross=k1_cross,
-         decode_attention_llava_g7=k1_llava, flash_attention=k2,
+         decode_attention_llava_g7=k1_llava,
+         decode_attention_float32=k1_f32, flash_attention=k2,
          flash_attention_window_d256=k2_window,
          flash_attention_float32=k2_f32,
          flash_attention_whisper_encoder=k2_encoder, atom_matmul=k3,
+         atom_matmul_float32=k3_f32,
          flash_attention_bwd=bwd,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
                   "decode: atoms (n=R) in reversed order bit-equal to n=1",
@@ -1465,8 +1492,8 @@ def routing_flips(torch, a, b) -> int:
 
 # kernel kinds of a profile, by words of the kernel's name (first match)
 KERNEL_KINDS = (
-    ("flash_attention_bwd", ("flash_attn_bwd", "bwd_mma_kernel",
-                             "bwd_f32_kernel", "delta_kernel")),
+    ("flash_attention_bwd", ("flash_attn_bwd", "bwd_d256_kernel",
+                             "bwd_tf32_kernel", "delta_kernel")),
     ("flash_attention", ("flash_attn",)),
     ("decode_attention", ("decode_",)),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "matmul")),
@@ -2097,7 +2124,7 @@ def train_hybrid_phase(torch, dev, *, real: bool) -> dict:
     * recurrentgemma-9b at its published widths (d_model 4096, 16 heads of
       256 on 1 KV head, d_ff 12288, lru_width 4096, vocab 256000, window
       2048), depth cut to one pattern period (rec, rec, attn): 4 steps of
-      2 x 4096 tokens, so the window skips blocks (the mma.sync path);
+      2 x 4096 tokens, so the window skips blocks (the head_dim-256 path);
     * olmo-1b's widths at 2 layers in float32: 2 steps of 2 x 1024 (the f32
       path).
 

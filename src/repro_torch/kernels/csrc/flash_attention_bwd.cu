@@ -63,28 +63,58 @@
 // cores idle together (letting them take turns with named barriers measured
 // slower); the outputs are stored from registers as bf16 pairs.
 //
-// Two more paths take what this design cannot hold, each a plain kernel of
-// 256 threads over the same two-part tile space and the same masks, lse
-// guard and ownership (one CTA an output tile, no atomics), with its own
-// tile sizes (`flash_attention_bwd_block_q/_k(dtype, D)`):
-//   * bfloat16 at head_dim 256 (`bwd_mma_kernel`): a thread of the design
-//     above would hold dK and dV for 64 keys x 256 columns (256 f32
-//     registers, over the 255 limit), and the resident pair alone is 128 KB.
-//     Here dQ tiles are 128 query rows (8 warps of 16, dQ 128 registers a
-//     thread, S and dP 32 keys at a time) and dK/dV tiles 64 keys, split by
-//     role: warps 0-3 own dV, warps 4-7 dK, each 16 keys x 256.  The dV warps
-//     compute S^T and P, the dK warps dP^T; P crosses to the dK warps through
-//     shared memory in fragment order, one __syncthreads a 16-query chunk,
-//     so the pair still issues seven products.  mma.sync m16n8k16 with
-//     ldmatrix fragments (tensor_core.cuh), tiles staged by cp.async into
-//     rows padded by 16 bytes, one buffer each (a block waits for its loads);
-//   * float32 at head_dim 64, 128 and 256 (`bwd_f32_kernel`): full f32
-//     products on the CUDA cores (wgmma and mma.sync have no f32 mode, and
-//     TF32 would round the inputs), as the forward's f32 path: tiles of 64
-//     rows resident in shared memory, streamed blocks of 32 rows, a thread
-//     owning 4 x 2 scores and 4 rows x D/16 columns of each accumulator; P
-//     and dS go through shared memory for the second products.  P is
-//     exp(S*scale - lse) with expf, the outputs are f32.
+// Two more paths take what this design cannot hold, over the same two-part
+// tile space, masks, lse guard and ownership (one CTA an output tile, no
+// atomics), with their own tile sizes (`flash_attention_bwd_block_q/_k(dtype,
+// D)`):
+//   * bfloat16 at head_dim 256 (`bwd_d256_kernel`).  Bound: operations, as
+//     above (0.52 ms at recurrentgemma-9b's training shape: B=2, S=4096, 16
+//     query heads on one KV head, window 2048).  A thread of the design above
+//     would hold dK and dV for 64 keys x 256 columns (256 registers, over the
+//     limit) and the resident pair of 128 rows alone is 128 KB.  The same
+//     shape (producer warp, TMA ring with full / empty mbarriers, setmaxnreg,
+//     masks only at edges, ex2.approx) with tiles cut to fit: a dQ tile is
+//     128 query rows, 64 a consumer warpgroup (dQ 128 registers a thread),
+//     with Q and dO resident (128 KB) and K, V streamed in blocks of 32 keys
+//     through a ring of 3 (32 KB a stage); a dK/dV tile is 64 keys split by
+//     role, K and V resident (64 KB), Q and dO streamed in blocks of 64 rows
+//     through a ring of 2 (64 KB a stage): warpgroup A owns dV and computes
+//     S^T and P^T, warpgroup B owns dK and computes dP^T; P^T crosses to B
+//     as bf16 through two buffers of 8 KB, handed over by named barriers
+//     between the two warpgroups (the producer never waits on them), so the
+//     pair still issues seven products;
+//   * float32 at head_dim 64, 128 and 256 (`bwd_tf32_kernel`): split TF32 on
+//     the tensor cores.  Each operand x is hi = tf32(x) (cvt.rna) and lo =
+//     tf32(x - hi), and each product is lo_a hi_b + hi_a lo_b + hi_a hi_b in
+//     f32: about 21 bits of each product where one TF32 product keeps 11
+//     (the f32 limits, 1e-5 of a gradient's largest value, need the split;
+//     ref.tf32_split_product is its plain emulation).  Bound: 10 D flops a
+//     pair at the CUDA cores' 67 TFLOP/s (1.28 ms at olmo-1b's shape, B=2,
+//     S=2048, H=16, D=128); the design's floor is 3 x 14 D flops a pair at
+//     495 TFLOP/s TF32 (0.73 ms).  mma.sync m16n8k8, not wgmma: wgmma takes
+//     tf32 operands K-major only and 64 rows a warpgroup, so three of the
+//     five products would need transposed copies of their B operands, and
+//     with hi and lo planes an element takes 8 bytes of shared memory (4x
+//     bf16), which leaves no room for 64-row tiles and their transposes at
+//     head_dim 128 and 256.  mma.sync reads each fragment with 32-bit shared
+//     loads in either orientation, conflict-free at a row pitch of D + 4
+//     floats, so every tile is stored once.  Streamed blocks land by
+//     cp.async into a ring of two stages (the next block loads under this
+//     one's products) and each thread splits the chunks it copied, in
+//     place, once per load; the resident tile is split in registers as its
+//     fragments load (below, `F32`), P and dS as they are made.  Tiles of
+//     128 rows (32 at head_dim 256), 8 warps of 16 rows (4 at 256), streamed
+//     blocks of 32 rows at head_dim 64 and 16 above.  The tensor cores add
+//     into an accumulator rounding toward zero, so every chain of additions
+//     is short and the running sums are added on the CUDA cores (`scores`).
+//     P is exp(S*scale - lse) with expf; the outputs are f32.  What holds it
+//     back: latency.  A thread holds 255 registers (dK and dV: 128), so an
+//     SM runs 8 warps, and a block of 16 queries takes ~3x the issue slots
+//     its instructions need; shared-memory traffic is ~40 % of the card's.
+//     16 warps with the dK/dV roles split between them spilled at the
+//     128-register cap (3.76 ms against 2.96), ldmatrix for the K-major
+//     fragments changed nothing (2.95 against 2.94); in the hi/lo-plane
+//     design 4 warps were slower than 8 (4.29 against 3.94).
 // Other dtypes and head dims return -1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,8 +155,6 @@ struct Smem {
   static constexpr int SBOX = BS * 128;         // one box of a streamed block
   static constexpr int RES = NB * RBOX;         // one resident tile
   static constexpr int STR = NB * SBOX;         // one streamed block
-  static constexpr int RES_TX = 2 * RES;        // bytes of the resident pair
-  static constexpr int STR_TX = 2 * STR;        // bytes of a streamed pair
   // resident pair, the two rings, lse / delta a stage, barriers, and room to
   // align the tiles to 1024 bytes
   static constexpr int BYTES = 1024 + 2 * RES + 2 * STAGES * STR +
@@ -446,25 +474,26 @@ __device__ __forceinline__ void dkv_consumer(const Args& a, const Tile& tl,
                 a.dv_s, tl.r0 + wg * 64, a.Sk, dv, 1.f);
 }
 
-// the producer warp: the resident pair once, then every streamed block of the
-// tile through the ring (for a dK/dV tile with its rows' lse * log2 e and
-// delta, +inf and 0 past Sq, staged by the warp's 32 lanes).  R and S are
-// the maps of the resident and the streamed operands.
-template <int D>
+// the producer warp: the resident pair once (NB boxes of RBOX bytes each),
+// then every streamed block of the tile through a ring of STG stages (SR
+// rows, NB boxes of SBOX bytes an operand; for a dK/dV tile with its rows'
+// lse * log2 e and delta, +inf and 0 past Sq, staged by the warp's 32
+// lanes).  R and S are the maps of the resident and the streamed operands.
+template <int NB, int STG, int SR, int RBOX, int SBOX>
 __device__ __forceinline__ void produce(const CUtensorMap* R0,
                                         const CUtensorMap* R1,
                                         const CUtensorMap* S0,
                                         const CUtensorMap* S1, const Args& a,
                                         const Tile& tl, const Range& rg,
                                         const Shared& sm) {
-  using M = Smem<D>;
+  constexpr int STR = NB * SBOX;
   const int lane = threadIdx.x & 31;
   if (lane == 0) {
-    mbar_expect_tx(sm.res, M::RES_TX);
+    mbar_expect_tx(sm.res, 2 * NB * RBOX);
 #pragma unroll
-    for (int j = 0; j < M::NB; ++j) {
-      tma_load_4d(sm.r0 + j * M::RBOX, R0, sm.res, 64 * j, tl.h, tl.r0, tl.b);
-      tma_load_4d(sm.r1 + j * M::RBOX, R1, sm.res, 64 * j, tl.h, tl.r0, tl.b);
+    for (int j = 0; j < NB; ++j) {
+      tma_load_4d(sm.r0 + j * RBOX, R0, sm.res, 64 * j, tl.h, tl.r0, tl.b);
+      tma_load_4d(sm.r1 + j * RBOX, R1, sm.res, 64 * j, tl.h, tl.r0, tl.b);
     }
   }
   int stage = 0;
@@ -473,37 +502,37 @@ __device__ __forceinline__ void produce(const CUtensorMap* R0,
     int head, row;
     if (tl.dq) {
       head = tl.h / a.G;
-      row = (rg.blk0 + i) * BS;
+      row = (rg.blk0 + i) * SR;
     } else {
       head = tl.h * a.G + i / rg.nq;
-      row = (rg.blk0 + i % rg.nq) * BS;
+      row = (rg.blk0 + i % rg.nq) * SR;
     }
     mbar_wait(sm.empty + 8 * stage, phase ^ 1);
     if (!tl.dq) {
       const long long base = ((long long)tl.b * a.Hq + head) * a.Sq;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 2 * lane + e, rr = row + c;
+      for (int c = lane; c < SR; c += 32) {
+        const int rr = row + c;
         const bool in = rr < a.Sq;
-        st_shared_f32(sm.lse + (stage * BS + c) * 4,
+        st_shared_f32(sm.lse + (stage * SR + c) * 4,
                       in ? a.lse[base + rr] * LOG2E : INFINITY);
-        st_shared_f32(sm.delta + (stage * BS + c) * 4,
+        st_shared_f32(sm.delta + (stage * SR + c) * 4,
                       in ? a.delta[base + rr] : 0.f);
       }
       __syncwarp();
     }
     if (lane == 0) {
       const uint32_t bar = sm.full + 8 * stage;
-      mbar_expect_tx(bar, M::STR_TX);
+      mbar_expect_tx(bar, 2 * STR);
 #pragma unroll
-      for (int j = 0; j < M::NB; ++j) {
-        tma_load_4d(sm.s0 + stage * M::STR + j * M::SBOX, S0, bar, 64 * j,
-                    head, row, tl.b);
-        tma_load_4d(sm.s1 + stage * M::STR + j * M::SBOX, S1, bar, 64 * j,
-                    head, row, tl.b);
+      for (int j = 0; j < NB; ++j) {
+        tma_load_4d(sm.s0 + stage * STR + j * SBOX, S0, bar, 64 * j, head,
+                    row, tl.b);
+        tma_load_4d(sm.s1 + stage * STR + j * SBOX, S1, bar, 64 * j, head,
+                    row, tl.b);
       }
     }
-    if (++stage == STAGES) {
+    if (++stage == STG) {
       stage = 0;
       phase ^= 1;
     }
@@ -544,11 +573,13 @@ flash_attn_bwd_kernel(const __grid_constant__ Maps maps, const Args a) {
     setmaxnreg_dec<24>();
     if (threadIdx.x < 32 && rg.n > 0) {
       if (tl.dq)
-        produce<D>(&maps.q_res, &maps.do_res, &maps.k_str, &maps.v_str, a, tl,
-                   rg, sm);
+        produce<M::NB, STAGES, BS, M::RBOX, M::SBOX>(
+            &maps.q_res, &maps.do_res, &maps.k_str, &maps.v_str, a, tl, rg,
+            sm);
       else
-        produce<D>(&maps.k_res, &maps.v_res, &maps.q_str, &maps.do_str, a, tl,
-                   rg, sm);
+        produce<M::NB, STAGES, BS, M::RBOX, M::SBOX>(
+            &maps.k_res, &maps.v_res, &maps.q_str, &maps.do_str, a, tl, rg,
+            sm);
     }
   } else {
     setmaxnreg_inc<240>();
@@ -561,37 +592,358 @@ flash_attn_bwd_kernel(const __grid_constant__ Maps maps, const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// The plain paths: bfloat16 at head_dim 256 and float32, tiles staged by
-// cp.async from the model's layout (no tensor maps)
+// bfloat16 at head_dim 256: wgmma fed by TMA, the producer warp and two
+// consumer warpgroups of the design above, with tiles that fit 256-wide rows
 // ---------------------------------------------------------------------------
 
-constexpr int PTHREADS = 256;   // 8 warps
-constexpr int MQ = 128;         // bf16 head_dim 256: query rows of a dQ tile
-constexpr int MK = 64;          // ... keys of a dK/dV tile, rows of a block
-constexpr int QC = 16;          // ... query columns of a dK/dV chunk
-constexpr int FT = 64;          // f32: rows of either tile
-constexpr int FS = 32;          // f32: rows of a streamed block
+struct D256 {
+  static constexpr int NB = 4;   // 64-wide boxes of a row
+  // dQ tile: Q and dO resident (QT rows), K and V streamed in QS-key blocks
+  static constexpr int QT = 128, QS = 32, QSTAGES = 3;
+  // dK/dV tile: K and V resident (KT keys), Q and dO streamed in KS-row
+  // blocks with their rows' lse and delta
+  static constexpr int KT = 64, KS = 64, KSTAGES = 2;
+  static constexpr int Q_RBOX = QT * 128, Q_SBOX = QS * 128;
+  static constexpr int K_RBOX = KT * 128, K_SBOX = KS * 128;
+  static constexpr int Q_RES = NB * Q_RBOX, Q_STR = NB * Q_SBOX;
+  static constexpr int K_RES = NB * K_RBOX, K_STR = NB * K_SBOX;
+  static constexpr int XBUF = KT * KS * 2;   // one block's P^T, bf16
+  static constexpr int DQ_BYTES = 2 * Q_RES + 2 * QSTAGES * Q_STR;
+  static constexpr int DKV_BYTES = 2 * K_RES + 2 * KSTAGES * K_STR +
+                                   2 * XBUF + 2 * KSTAGES * KS * 4;
+  static constexpr int TILES = DQ_BYTES > DKV_BYTES ? DQ_BYTES : DKV_BYTES;
+  // the larger role's tiles, barriers sized for the deeper ring, alignment
+  static constexpr int BYTES = 1024 + TILES + (1 + 2 * QSTAGES) * 8;
+};
+static_assert(D256::BYTES <= 232448, "227 KB of shared memory a block");
+static_assert(D256::KSTAGES <= D256::QSTAGES, "one set of ring barriers");
+
+// named barriers between the dK/dV tile's two consumer warpgroups: P^T of
+// buffer b is written (BAR_P + b), and read (BAR_FREE + b)
+constexpr int BAR_P = 1, BAR_FREE = 3;
+
+// s[64 x N] = R (64 rows at descriptor dr) * S^T (N rows at ds), both
+// K-major over 256 columns in 64-wide boxes of RBOX and SBOX bytes
+template <int N, int RBOX, int SBOX>
+__device__ __forceinline__ void ss_256(float (&s)[N / 2], uint64_t dr,
+                                       uint64_t ds) {
+#pragma unroll
+  for (int ks = 0; ks < 16; ++ks) {
+    const uint64_t a = dr + ((ks / 4) * RBOX + (ks % 4) * 32) / 16;
+    const uint64_t b = ds + ((ks / 4) * SBOX + (ks % 4) * 32) / 16;
+    if constexpr (N == 32)
+      wgmma_m64n32k16_ss<0>(s, a, b, ks > 0);
+    else
+      wgmma_m64n64k16_ss<0>(s, a, b, ks > 0);
+  }
+}
+
+// acc[64 x 256] += frag (64 x 16K, registers) * the streamed block at `str`
+// (16K x 256, MN-major, 64-wide boxes of SBOX bytes)
+template <int K, int SBOX>
+__device__ __forceinline__ void rs_256(float (&acc)[128],
+                                       const unsigned (&frag)[K][4],
+                                       uint32_t str) {
+  const uint64_t d = wgmma_desc(str, SBOX, 1024);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+    wgmma_m64n256k16_rs<1>(acc, frag[kk], d + kk * 2048 / 16, 1);
+}
+
+// an accumulator of 64 x 16K as K A fragments of bf16
+template <int K>
+__device__ __forceinline__ void frags_of(unsigned (&f)[K][4],
+                                         const float (&s)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// dQ of a warpgroup's 64 query rows (r0 + 64 wg ...): resident Q, dO;
+// streamed K, V in blocks of 32 keys
+__device__ __forceinline__ void dq_consumer_256(const Args& a, const Tile& tl,
+                                                const Range& rg, int wg,
+                                                const Shared& sm) {
+  using C = D256;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int off = a.Sk - a.Sq;
+  const int qw = tl.r0 + wg * 64 + warp * 16;   // the warp's first row
+  const long long bh = (long long)tl.b * a.Hq + tl.h;
+  float lse2[2], dlt[2];   // rows g and g + 8 of the warp's 16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    const bool in = row < a.Sq;
+    lse2[r] = in ? a.lse[bh * a.Sq + row] * LOG2E : INFINITY;
+    dlt[r] = in ? a.delta[bh * a.Sq + row] : 0.f;
+  }
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  if (rg.n > 0) mbar_wait(sm.res, 0);
+  const uint64_t dq_ = wgmma_desc(sm.r0 + wg * 64 * 128, 16, 1024);
+  const uint64_t do_ = wgmma_desc(sm.r1 + wg * 64 * 128, 16, 1024);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < rg.n; ++i) {
+    const int k0 = (rg.blk0 + i) * C::QS;
+    mbar_wait(sm.full + 8 * stage, phase);
+    const uint32_t kt = sm.s0 + stage * C::Q_STR, vt = sm.s1 + stage * C::Q_STR;
+    float s[16], dp[16];
+    wgmma_fence();
+    ss_256<32, C::Q_RBOX, C::Q_SBOX>(s, dq_, wgmma_desc(kt, 16, 1024));
+    wgmma_commit();
+    ss_256<32, C::Q_RBOX, C::Q_SBOX>(dp, do_, wgmma_desc(vt, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = (k0 + C::QS > a.Sk) ||
+                      (a.causal && k0 + C::QS - 1 > off + qw) ||
+                      (a.window > 0 && k0 <= off + qw + 15 - a.window);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2_approx(s[4 * nt + e] * a.scale_log2e - lse2[r]);
+        if (edge && !visible(k0 + nt * 8 + 2 * tq + (e & 1),
+                             off + qw + g + 8 * r, a.Sk, a.causal, a.window))
+          p = 0.f;
+        s[4 * nt + e] = p;
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s[j] *= dp[j] - dlt[(j >> 1) & 1];
+    unsigned f[2][4];
+    frags_of<2>(f, s);
+    wgmma_fence();
+    rs_256<2, C::Q_SBOX>(acc, f, kt);   // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(sm.empty + 8 * stage);
+    if (++stage == C::QSTAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_rows<256>(static_cast<bf16*>(a.dq) + tl.b * a.dq_b + tl.h * a.dq_h,
+                  a.dq_s, tl.r0 + wg * 64, a.Sq, acc, a.scale);
+}
+
+// dV of the dK/dV tile's 64 keys (warpgroup A): S^T = K Q^T and P^T for each
+// block of 64 queries; P^T goes to warpgroup B through buffer i % 2 of `xb`
+// (fragment order: [4][128 threads] x 16 bytes), then dV += P^T dO
+__device__ __forceinline__ void dv_consumer_256(const Args& a, const Tile& tl,
+                                                const Range& rg,
+                                                const Shared& sm,
+                                                uint32_t xb) {
+  using C = D256;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int off = a.Sk - a.Sq;
+  const int kw = tl.r0 + warp * 16;   // the warp's first key
+  float dv[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dv[i] = 0.f;
+  if (rg.n > 0) mbar_wait(sm.res, 0);
+  const uint64_t k_ = wgmma_desc(sm.r0, 16, 1024);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < rg.n; ++i) {
+    const int q0 = (rg.blk0 + i % rg.nq) * C::KS;
+    mbar_wait(sm.full + 8 * stage, phase);
+    const uint32_t qt = sm.s0 + stage * C::K_STR, ot = sm.s1 + stage * C::K_STR;
+    const uint32_t lse2 = sm.lse + stage * C::KS * 4 + tq * 8;
+    float st[32];
+    wgmma_fence();
+    ss_256<64, C::K_RBOX, C::K_SBOX>(st, k_, wgmma_desc(qt, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    const bool edge = (kw + 15 >= a.Sk) || (a.causal && kw + 15 > off + q0) ||
+                      (a.window > 0 && kw <= off + q0 + C::KS - 1 - a.window);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 l2 = ld_shared_f32x2(lse2 + nt * 32);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(st[4 * nt + e] * a.scale_log2e -
+                              ((e & 1) ? l2.y : l2.x));
+        if (edge && !visible(kw + g + 8 * (e >> 1),
+                             off + q0 + nt * 8 + 2 * tq + (e & 1), a.Sk,
+                             a.causal, a.window))
+          p = 0.f;
+        st[4 * nt + e] = p;
+      }
+    }
+    unsigned pf[4][4];
+    frags_of<4>(pf, st);
+    const int b = i & 1;
+    if (i >= 2) named_bar_sync<256>(BAR_FREE + b);   // B has read block i-2's
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(xb + b * C::XBUF + (j * 128 + tid) * 16),
+                      "r"(pf[j][0]), "r"(pf[j][1]), "r"(pf[j][2]),
+                      "r"(pf[j][3]) : "memory");
+    named_bar_arrive<256>(BAR_P + b);
+    wgmma_fence();
+    rs_256<4, C::K_SBOX>(dv, pf, ot);   // dV += P^T dO
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    if (lane == 0) mbar_arrive(sm.empty + 8 * stage);
+    if (++stage == C::KSTAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_rows<256>(static_cast<bf16*>(a.dv) + tl.b * a.dv_b + tl.h * a.dv_h,
+                  a.dv_s, tl.r0, a.Sk, dv, 1.f);
+}
+
+// dK of the same 64 keys (warpgroup B): dP^T = V dO^T, P^T from warpgroup A,
+// dS^T = P^T (dP^T - delta), dK += dS^T Q
+__device__ __forceinline__ void dk_consumer_256(const Args& a, const Tile& tl,
+                                                const Range& rg,
+                                                const Shared& sm,
+                                                uint32_t xb) {
+  using C = D256;
+  const int tid = threadIdx.x & 127, lane = tid & 31;
+  const int tq = lane & 3;
+  float dk[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dk[i] = 0.f;
+  if (rg.n > 0) mbar_wait(sm.res, 0);
+  const uint64_t v_ = wgmma_desc(sm.r1, 16, 1024);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < rg.n; ++i) {
+    mbar_wait(sm.full + 8 * stage, phase);
+    const uint32_t qt = sm.s0 + stage * C::K_STR, ot = sm.s1 + stage * C::K_STR;
+    const uint32_t dlt = sm.delta + stage * C::KS * 4 + tq * 8;
+    float dpt[32];
+    wgmma_fence();
+    ss_256<64, C::K_RBOX, C::K_SBOX>(dpt, v_, wgmma_desc(ot, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    const int b = i & 1;
+    named_bar_sync<256>(BAR_P + b);   // A has written this block's P^T
+    unsigned pf[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(pf[j][0]), "=r"(pf[j][1]), "=r"(pf[j][2]),
+                     "=r"(pf[j][3])
+                   : "r"(xb + b * C::XBUF + (j * 128 + tid) * 16)
+                   : "memory");
+    if (i + 2 < rg.n) named_bar_arrive<256>(BAR_FREE + b);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 d2 = ld_shared_f32x2(dlt + nt * 32);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned w = pf[nt / 2][2 * (nt % 2) + (e >> 1)];
+        const float p = __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+        dpt[4 * nt + e] = p * (dpt[4 * nt + e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    unsigned sf[4][4];
+    frags_of<4>(sf, dpt);
+    wgmma_fence();
+    rs_256<4, C::K_SBOX>(dk, sf, qt);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    if (lane == 0) mbar_arrive(sm.empty + 8 * stage);
+    if (++stage == C::KSTAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_rows<256>(static_cast<bf16*>(a.dk) + tl.b * a.dk_b + tl.h * a.dk_h,
+                  a.dk_s, tl.r0, a.Sk, dk, a.scale);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+bwd_d256_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using C = D256;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t t0 = base + ((1024 - (base & 1023)) & 1023);
+  const Tile tl = tile_of<C::QT, C::KT>(a, a.start + (int)blockIdx.x);
+  Shared sm;
+  uint32_t xb = 0;
+  Range rg;
+  sm.r0 = t0;
+  if (tl.dq) {
+    rg = range_of<C::QT, C::KT, C::QS>(a, tl);
+    sm.r1 = sm.r0 + C::Q_RES;
+    sm.s0 = sm.r1 + C::Q_RES;
+    sm.s1 = sm.s0 + C::QSTAGES * C::Q_STR;
+    sm.lse = sm.delta = 0;
+  } else {
+    rg = range_of<C::QT, C::KT, C::KS>(a, tl);
+    sm.r1 = sm.r0 + C::K_RES;
+    sm.s0 = sm.r1 + C::K_RES;
+    sm.s1 = sm.s0 + C::KSTAGES * C::K_STR;
+    xb = sm.s1 + C::KSTAGES * C::K_STR;
+    sm.lse = xb + 2 * C::XBUF;
+    sm.delta = sm.lse + C::KSTAGES * C::KS * 4;
+  }
+  sm.res = t0 + C::TILES;
+  sm.full = sm.res + 8;
+  sm.empty = sm.full + 8 * C::QSTAGES;
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + (sm.res - base));
+    mbar_init(bars, 1);
+    for (int s = 0; s < C::QSTAGES; ++s) {
+      mbar_init(bars + 1 + s, 1);
+      mbar_init(bars + 1 + C::QSTAGES + s, 8);   // a consumer warp each
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32 && rg.n > 0) {
+      if (tl.dq)
+        produce<C::NB, C::QSTAGES, C::QS, C::Q_RBOX, C::Q_SBOX>(
+            &maps.q_res, &maps.do_res, &maps.k_str, &maps.v_str, a, tl, rg,
+            sm);
+      else
+        produce<C::NB, C::KSTAGES, C::KS, C::K_RBOX, C::K_SBOX>(
+            &maps.k_res, &maps.v_res, &maps.q_str, &maps.do_str, a, tl, rg,
+            sm);
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128 - 1;
+    if (tl.dq)
+      dq_consumer_256(a, tl, rg, wg, sm);
+    else if (wg == 0)
+      dv_consumer_256(a, tl, rg, sm, xb);
+    else
+      dk_consumer_256(a, tl, rg, sm, xb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: split TF32 on the tensor cores (mma.sync m16n8k8), tiles staged by
+// cp.async from the model's layout and split once as they land
+// ---------------------------------------------------------------------------
 
 struct In {   // the inputs' base pointers and strides, in elements
   const void *q, *k, *v, *dout;
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h;
 };
-
-// rows [row0, row0 + ROWS) of a [*, D] operand of T -> shared rows of PITCH
-// elements, zero-filled at or past `limit`; the caller commits and waits
-template <typename T, int D, int ROWS, int PITCH>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int limit) {
-  constexpr int E = 16 / (int)sizeof(T);   // elements of a 16-byte chunk
-  constexpr int CH = D / E;                // chunks a row
-  for (int i = threadIdx.x; i < ROWS * CH; i += PTHREADS) {
-    const int r = i / CH, c = (i % CH) * E;
-    const bool ok = row0 + r < limit;
-    const T* s = ok ? src + (long long)(row0 + r) * row_stride + c : src;
-    cp_async_16(dst + r * PITCH + c, s, ok);
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ const T* head_base(const void* p, long long sb,
@@ -599,506 +951,466 @@ __device__ __forceinline__ const T* head_base(const void* p, long long sb,
   return static_cast<const T*>(p) + b * sb + h * sh;
 }
 
-// --- bfloat16, head_dim 256: mma.sync --------------------------------------
-
-constexpr int MP = 256 + 8;   // a padded bf16 row: ldmatrix free of conflicts
-
-// A fragment (16 x 16) at (r0, c0) of a padded tile
-__device__ __forceinline__ void load_a(unsigned (&r)[4], const bf16* t, int r0,
-                                       int c0, int lane) {
-  ldmatrix_x4(r, t + (r0 + (lane & 15)) * MP + c0 + (lane >> 4) * 8);
+// A streamed block of R rows is two planes [R][P] of f32 words: hi =
+// tf32(x), then lo = tf32(x - hi), split once as it lands.  A resident tile
+// is one plane as loaded, split in registers as its fragments load: its
+// fragments are read again for every streamed block, and shared-memory
+// reads cost more here than the three ALU operations of a split (hi and lo
+// planes of the resident tile, 64-row tiles and 8-row parts of each block:
+// 3.92 ms against 3.05 at olmo-1b's shape in one call, NVIDIA H100 80GB
+// HBM3, 700 W).  Every warp owns 16 rows of the tile (a row group); at
+// head_dim 256 a dQ warp takes a part of each streamed block and a dK/dV
+// warp a part of the columns (its dK and dV would take 256 registers), and
+// the parts' sums meet in shared memory at the end, added in part order.
+template <int D>
+struct F32 {
+  static constexpr int P = D + 4;                // floats a plane row
+  static constexpr int T = D == 256 ? 32 : 128;  // rows of either tile
+  static constexpr int SB = D == 64 ? 32 : 16;   // rows of a streamed block
+  static constexpr int NW = D == 256 ? 4 : 8;    // warps
+  static constexpr int RG = T / 16;              // row groups
+  static constexpr int SQ = NW / RG;             // dQ: parts of a block
+  static constexpr int CK = NW / RG;             // dK/dV: parts of the columns
+  static constexpr int KC = 2;                   // accumulators of a score
+  static constexpr int RES = T * P;              // floats of a resident operand
+  static constexpr int STR = 2 * SB * P;         // floats of a streamed operand
+  // resident pair, a ring of two streamed pairs, lse and delta a stage
+  static constexpr int BYTES = 4 * (2 * RES + 4 * STR + 4 * SB);
+};
+template <int D>
+constexpr bool f32_fits() {   // the tiles, and the dQ parts' sums in the ring
+  using F = F32<D>;
+  return F::BYTES <= 232448 &&
+         (F::SQ - 1) * F::RG * (D / 8) * 128 <= 4 * F::STR &&
+         D / F::CK <= 128;   // a dK/dV warp's dK and dV: 2 x D/CK / 2 registers
 }
+static_assert(f32_fits<64>() && f32_fits<128>() && f32_fits<256>(),
+              "227 KB of shared memory a block");
 
-// B fragments of n-tiles n0, n0 + 8 x 16 k from a tile stored [n][k]
-__device__ __forceinline__ void load_b_nk(unsigned (&r)[4], const bf16* t,
-                                          int n0, int k0, int lane) {
-  ldmatrix_x4(r, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * MP + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of n-tiles n0, n0 + 8 x 16 k from a tile stored [k][n]
-__device__ __forceinline__ void load_b_kn(unsigned (&r)[4], const bf16* t,
-                                          int k0, int n0, int lane) {
-  ldmatrix_x4_trans(r, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * MP +
-                           n0 + (lane >> 4) * 8);
-}
-
-// two neighbouring 16 x 8 f32 accumulator tiles as one bf16 A fragment
-__device__ __forceinline__ void c_to_a(unsigned (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// acc[16 x 256] += a[16 x 16] * rows [k0, k0 + 16) of a tile stored [k][n]
-__device__ __forceinline__ void mma_rows(float (&acc)[32][4],
-                                         const unsigned (&a)[4], const bf16* t,
-                                         int k0, int lane) {
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    unsigned b[4];
-    load_b_kn(b, t, k0, n * 16, lane);
-    mma_bf16(acc[2 * n], a, b[0], b[1]);
-    mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
+// rows [row0, row0 + R) of a [*, D] f32 operand -> rows of pitch P at
+// `dst` (zero-filled at or past `limit`); thread i takes 16-byte chunks i,
+// i + NT, ... (and `split_rows` later splits the same chunks)
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int row0,
+                                          int limit) {
+  constexpr int P = F32<D>::P, CH = D / 4;
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = row0 + r < limit;
+    cp_async_16(dst + r * P + c,
+                ok ? src + (long long)(row0 + r) * stride + c : src, ok);
   }
 }
 
-// s[16 x 8N] = rows [r0, r0 + 16) of A times rows [n0, n0 + 8N) of B, both
-// stored [row][d] over d < 256
-template <int N>
-__device__ __forceinline__ void mma_scores(float (&s)[N][4], const bf16* A,
-                                           int r0, const bf16* B, int n0,
-                                           int lane) {
+// a streamed operand's R rows -> the lo plane of its tile at `t`
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_block(float* t, const float* src,
+                                           long long stride, int row0,
+                                           int limit) {
+  load_rows<D, R, NT>(t + R * F32<D>::P, src, stride, row0, limit);
+}
+
+// this thread's landed chunks of the tile at `t`: x -> hi, lo in place
+template <int D, int R, int NT>
+__device__ __forceinline__ void split_rows(float* t) {
+  constexpr int P = F32<D>::P, CH = D / 4;
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int o = (i / CH) * P + (i % CH) * 4;
+    float4 x = *reinterpret_cast<const float4*>(t + R * P + o);
+    float4 h, l;
+    h.x = __uint_as_float(tf32_rna(x.x));
+    h.y = __uint_as_float(tf32_rna(x.y));
+    h.z = __uint_as_float(tf32_rna(x.z));
+    h.w = __uint_as_float(tf32_rna(x.w));
+    l.x = __uint_as_float(tf32_rna(x.x - h.x));
+    l.y = __uint_as_float(tf32_rna(x.y - h.y));
+    l.z = __uint_as_float(tf32_rna(x.z - h.z));
+    l.w = __uint_as_float(tf32_rna(x.w - h.w));
+    *reinterpret_cast<float4*>(t + o) = h;
+    *reinterpret_cast<float4*>(t + R * P + o) = l;
+  }
+}
+
+// four f32 values as split TF32
+__device__ __forceinline__ void split4(unsigned (&hi)[4], unsigned (&lo)[4],
+                                       const float (&x)[4]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll 4
-  for (int ks = 0; ks < 16; ++ks) {
-    unsigned af[4];
-    load_a(af, A, r0, ks * 16, lane);
+  for (int j = 0; j < 4; ++j) {
+    hi[j] = tf32_rna(x[j]);
+    lo[j] = tf32_rna(x[j] - __uint_as_float(hi[j]));
+  }
+}
+
+// A fragment (16 x 8) of a raw plane stored [row][k] from row 0 of `p`,
+// columns k0 ... k0 + 7 (pitch P = 4 mod 32: no bank conflicts), split
+template <int P>
+__device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
+                                       const float* p, int k0, int g, int t) {
+  const float x[4] = {p[g * P + k0 + t], p[(g + 8) * P + k0 + t],
+                      p[g * P + k0 + t + 4], p[(g + 8) * P + k0 + t + 4]};
+  split4(hi, lo, x);
+}
+
+// B fragment (8 x 8) of a plane stored [n][k]: rows n = 0..7 of `p`,
+// columns k0 ... k0 + 7
+template <int P>
+__device__ __forceinline__ void frag_b_nk(unsigned (&r)[2], const float* p,
+                                          int k0, int g, int t) {
+  r[0] = __float_as_uint(p[g * P + k0 + t]);
+  r[1] = __float_as_uint(p[g * P + k0 + t + 4]);
+}
+
+// B fragment of a plane stored [k][n]: rows k = 0..7 of `p`, columns n0 ...
+// n0 + 7, k taken in the order (0, 2, 4, 6, 1, 3, 5, 7): the order in which
+// `frag_of_acc` reads an accumulator's columns
+template <int P>
+__device__ __forceinline__ void frag_b_kn(unsigned (&r)[2], const float* p,
+                                          int n0, int g, int t) {
+  r[0] = __float_as_uint(p[2 * t * P + n0 + g]);
+  r[1] = __float_as_uint(p[(2 * t + 1) * P + n0 + g]);
+}
+
+// an accumulator tile (16 x 8) as an A fragment over its 8 columns, split
+__device__ __forceinline__ void frag_of_acc(unsigned (&hi)[4],
+                                            unsigned (&lo)[4],
+                                            const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  split4(hi, lo, x);
+}
+
+// c += a b in split TF32: lo_a hi_b + hi_a lo_b + hi_a hi_b
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// The tensor cores add each product into its accumulator rounding toward
+// zero, so a long chain of additions into one accumulator drifts (1-2e-5 of
+// a gradient measured with one chain).  Chains are kept short: a score's D
+// columns go to KC accumulators summed in f32 at the end, and each streamed
+// block's share of an output goes to a fresh accumulator added to the
+// running one on the CUDA cores, rounding to nearest.
+
+// s0 = rows of the raw resident plane a0 times rows of the streamed planes
+// at b0 (hi; lo BR rows on), and s1 likewise of a1 and b1: two scores [16 x
+// 8NS] over d < D, taken in one loop so their chains overlap
+template <int D, int BR, int NS>
+__device__ __forceinline__ void scores(float (&s0)[NS][4], float (&s1)[NS][4],
+                                       const float* a0, const float* b0,
+                                       const float* a1, const float* b1,
+                                       int g, int t) {
+  constexpr int P = F32<D>::P, KC = F32<D>::KC;
+  float c0[KC][NS][4], c1[KC][NS][4];
 #pragma unroll
-    for (int n = 0; n < N / 2; ++n) {
-      unsigned bf[4];
-      load_b_nk(bf, B, n0 + n * 16, ks * 16, lane);
-      mma_bf16(s[2 * n], af, bf[0], bf[1]);
-      mma_bf16(s[2 * n + 1], af, bf[2], bf[3]);
+  for (int q = 0; q < KC; ++q)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c0[q][n][j] = c1[q][n][j] = 0.f;
+#pragma unroll 2
+  for (int k1 = 0; k1 < D; k1 += 8 * KC)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      const int k0 = k1 + 8 * q;
+      unsigned ah[4], al[4], ch[4], cl[4];
+      frag_a<P>(ah, al, a0, k0, g, t);
+      frag_a<P>(ch, cl, a1, k0, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        unsigned bh[2], bl[2], dh[2], dl[2];
+        frag_b_nk<P>(bh, b0 + n * 8 * P, k0, g, t);
+        frag_b_nk<P>(bl, b0 + (BR + n * 8) * P, k0, g, t);
+        frag_b_nk<P>(dh, b1 + n * 8 * P, k0, g, t);
+        frag_b_nk<P>(dl, b1 + (BR + n * 8) * P, k0, g, t);
+        mma3(c0[q][n], ah, al, bh, bl);
+        mma3(c1[q][n], ch, cl, dh, dl);
+      }
+    }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s0[n][j] = c0[0][n][j];
+      s1[n][j] = c1[0][n][j];
+#pragma unroll
+      for (int q = 1; q < KC; ++q) {
+        s0[n][j] += c0[q][n][j];
+        s1[n][j] += c1[q][n][j];
+      }
+    }
+}
+
+// acc[16 x 8NO] += c (16 x 8NS, accumulator tiles) * rows 0 .. 8NS of the
+// streamed planes (b: hi, b + BR*P: lo), columns c0 ... c0 + 8NO; with
+// NA = 2 also acc1 += c1 * the planes at b1, in the same loop
+template <int D, int BR, int NS, int NO, int NA = 1>
+__device__ __forceinline__ void accumulate(float (&acc)[NO][4],
+                                           const float (&c)[NS][4],
+                                           const float* b,
+                                           float (&acc1)[NO][4],
+                                           const float (&c1)[NS][4],
+                                           const float* b1, int c0, int g,
+                                           int t) {
+  constexpr int P = F32<D>::P;
+  unsigned ah[NA][NS][4], al[NA][NS][4];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    frag_of_acc(ah[0][n], al[0][n], c[n]);
+    if constexpr (NA == 2) frag_of_acc(ah[NA - 1][n], al[NA - 1][n], c1[n]);
+  }
+#pragma unroll
+  for (int m = 0; m < NO; ++m) {
+    float x[NA][4];   // this block's share
+#pragma unroll
+    for (int u = 0; u < NA; ++u) x[u][0] = x[u][1] = x[u][2] = x[u][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int u = 0; u < NA; ++u) {
+        const float* p = u == 0 ? b : b1;
+        unsigned bh[2], bl[2];
+        frag_b_kn<P>(bh, p + n * 8 * P, c0 + m * 8, g, t);
+        frag_b_kn<P>(bl, p + (BR + n * 8) * P, c0 + m * 8, g, t);
+        mma3(x[u], ah[u][n], al[u][n], bh, bl);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[m][j] += x[0][j];
+      if constexpr (NA == 2) acc1[m][j] += x[NA - 1][j];
     }
   }
 }
 
-// a warp's 16 rows of a [16 x 256] accumulator, times `mul`, as bf16 pairs;
-// rows at or past `limit` are not stored
-__device__ __forceinline__ void store_frag_rows(bf16* base, long long stride,
-                                                int row0, int limit,
-                                                const float (&acc)[32][4],
-                                                float mul, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
+// adds the dQ accumulators of a row group's parts 1.. to part 0's, in part
+// order, through `scratch` (the ring, no longer read); every thread calls it
+template <int NO>
+__device__ __forceinline__ void sum_parts(float (&acc)[NO][4], float* scratch,
+                                          int part, int parts, int slot,
+                                          int slots, int lane) {
+  if (parts == 1) return;
+  __syncthreads();
+  if (part > 0) {
+    float* p = scratch + ((part - 1) * slots + slot) * NO * 128 + lane;
+#pragma unroll
+    for (int m = 0; m < NO; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[(4 * m + j) * 32] = acc[m][j];
+  }
+  __syncthreads();
+  if (part == 0)
+    for (int q = 1; q < parts; ++q) {
+      const float* p = scratch + ((q - 1) * slots + slot) * NO * 128 + lane;
+#pragma unroll
+      for (int m = 0; m < NO; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][j] += p[(4 * m + j) * 32];
+    }
+}
+
+// rows r0 + g, r0 + g + 8 of accumulator tiles acc[m] (columns c0 + 8m ...),
+// times `mul`, below `limit`, into out[b, row, h, :]
+template <int NO>
+__device__ __forceinline__ void store_acc(void* out, long long sb,
+                                          long long ss, long long sh, int b,
+                                          int h, int r0, int c0, int limit,
+                                          const float (&acc)[NO][4],
+                                          float mul, int g, int t) {
+  float* base = static_cast<float*>(out) + b * sb + h * sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row < limit) {
-      bf16* p = base + (long long)row * stride + 2 * tq;
+    const int row = r0 + g + 8 * r;
+    if (row < limit)
 #pragma unroll
-      for (int dt = 0; dt < 32; ++dt)
-        *reinterpret_cast<unsigned*>(p + dt * 8) =
-            pack_bf16(acc[dt][2 * r] * mul, acc[dt][2 * r + 1] * mul);
-    }
+      for (int m = 0; m < NO; ++m)
+        *reinterpret_cast<float2*>(base + row * ss + c0 + m * 8 + 2 * t) =
+            make_float2(acc[m][2 * r] * mul, acc[m][2 * r + 1] * mul);
   }
 }
 
-// P of a dK/dV chunk in fragment order: [2 buffers][4 warps][32 lanes][8]
-constexpr int MMA_P = 2 * 4 * 32 * 8;
-constexpr int MMA_SMEM =   // the larger role: a dQ tile's Q, dO, K, V
-    (2 * MQ + 2 * MK) * MP * (int)sizeof(bf16);
-static_assert(4 * MK * MP * 2 + (MMA_P + 2 * MK) * 4 <= MMA_SMEM,
-              "a dK/dV tile fits in a dQ tile's room");
-static_assert(MMA_SMEM <= 232448, "227 KB of shared memory a block");
-
-// dQ of 128 query rows of one head: warp w owns rows r0 + 16 w; each 64-key
-// block is taken 32 keys at a time
-__device__ void dq_mma(const Args& a, const In& in, const Tile& tl,
-                       const Range& rg, bf16* sm) {
-  bf16* sQ = sm;
-  bf16* sO = sQ + MQ * MP;
-  bf16* sK = sO + MQ * MP;
-  bf16* sV = sK + MK * MP;
+// dQ of T query rows of one head: warp w owns rows 16 (w % RG) ... and keys
+// [SW part, SW part + SW) of each streamed block of SB keys
+template <int D>
+__device__ __forceinline__ void dq_tf32(const Args& a, const In& in,
+                                        const Tile& tl, const Range& rg,
+                                        float* sm) {
+  using F = F32<D>;
+  constexpr int P = F::P, T = F::T, SB = F::SB, NT = F::NW * 32;
+  constexpr int SW = SB / F::SQ, NS = SW / 8, NO = D / 8;
+  float* rq = sm;             // Q, as loaded
+  float* ro = rq + F::RES;    // dO
+  float* ring = ro + F::RES;  // [stage]: K (hi, lo), V (hi, lo)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3, off = a.Sk - a.Sq;
-  const int hk = tl.h / a.G;
-  load_rows<bf16, 256, MQ, MP>(
-      sQ, head_base<bf16>(in.q, in.q_b, in.q_h, tl.b, tl.h), in.q_s, tl.r0,
-      a.Sq);
-  load_rows<bf16, 256, MQ, MP>(
-      sO, head_base<bf16>(in.dout, in.do_b, in.do_h, tl.b, tl.h), in.do_s,
-      tl.r0, a.Sq);
-  cp_async_commit();
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp % F::RG, part = warp / F::RG;
+  const int off = a.Sk - a.Sq, hk = tl.h / a.G;
+  const int qw = tl.r0 + grp * 16;   // the warp's first row
   const long long bh = (long long)tl.b * a.Hq + tl.h;
-  const int qw = tl.r0 + warp * 16;   // the warp's first row
-  float lse2[2], dlt[2];   // rows g and g + 8 of the warp's 16
+  float lse[2], dlt[2];   // rows g and g + 8 of the warp's 16
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qw + g + 8 * r;
-    const bool in_ = row < a.Sq;
-    lse2[r] = in_ ? a.lse[bh * a.Sq + row] * LOG2E : INFINITY;
-    dlt[r] = in_ ? a.delta[bh * a.Sq + row] : 0.f;
+    lse[r] = row < a.Sq ? a.lse[bh * a.Sq + row] : INFINITY;
+    dlt[r] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
   }
-  float acc[32][4];
+  float acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const bf16* kb = head_base<bf16>(in.k, in.k_b, in.k_h, tl.b, hk);
-  const bf16* vb = head_base<bf16>(in.v, in.v_b, in.v_h, tl.b, hk);
+  for (int m = 0; m < NO; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+  const float* kb = head_base<float>(in.k, in.k_b, in.k_h, tl.b, hk);
+  const float* vb = head_base<float>(in.v, in.v_b, in.v_h, tl.b, hk);
+  if (rg.n > 0) {
+    load_rows<D, T, NT>(rq, head_base<float>(in.q, in.q_b, in.q_h, tl.b, tl.h),
+                        in.q_s, tl.r0, a.Sq);
+    load_rows<D, T, NT>(ro, head_base<float>(in.dout, in.do_b, in.do_h, tl.b,
+                                             tl.h), in.do_s, tl.r0, a.Sq);
+    load_block<D, SB, NT>(ring, kb, in.k_s, rg.blk0 * SB, a.Sk);
+    load_block<D, SB, NT>(ring + F::STR, vb, in.v_s, rg.blk0 * SB, a.Sk);
+    cp_async_commit();
+  }
   for (int i = 0; i < rg.n; ++i) {
-    const int k0 = (rg.blk0 + i) * MK;
-    __syncthreads();   // the previous block's K, V are no longer read
-    load_rows<bf16, 256, MK, MP>(sK, kb, in.k_s, k0, a.Sk);
-    load_rows<bf16, 256, MK, MP>(sV, vb, in.v_s, k0, a.Sk);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll 1
-    for (int kc = 0; kc < MK; kc += 32) {
-      float s[4][4], dp[4][4];
-      mma_scores<4>(s, sQ, warp * 16, sK, kc, lane);
-      mma_scores<4>(dp, sO, warp * 16, sV, kc, lane);
-      // dS = P (dP - delta), P from the saved lse and zero where masked
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, row = qw + g + 8 * r;
-          const int kpos = k0 + kc + nt * 8 + 2 * tq + (e & 1);
-          const bool ok = row < a.Sq &&
-                          visible(kpos, off + row, a.Sk, a.causal, a.window);
-          const float p =
-              ok ? exp2f(s[nt][e] * a.scale_log2e - lse2[r]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - dlt[r]);
-        }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {   // dQ += dS K
-        unsigned af[4];
-        c_to_a(af, s[2 * kk], s[2 * kk + 1]);
-        mma_rows(acc, af, sK, kc + kk * 16, lane);
-      }
-    }
-  }
-  cp_async_wait<0>();   // a tile with no visible key never waited
-  store_frag_rows(static_cast<bf16*>(a.dq) + tl.b * a.dq_b + tl.h * a.dq_h,
-                  a.dq_s, qw, a.Sq, acc, a.scale, lane);
-}
-
-// dK and dV of 64 keys of one KV head: warps 0-3 own dV of keys r0 + 16 w,
-// warps 4-7 dK of keys r0 + 16 (w - 4).  Each 16-query chunk: the dV warps
-// take S^T and P and pass P (in fragment order) to the dK warps, which take
-// dP^T; after one barrier the dV warps add P^T dO, the dK warps dS^T Q.
-__device__ void dkv_mma(const Args& a, const In& in, const Tile& tl,
-                        const Range& rg, bf16* sm) {
-  bf16* sK = sm;
-  bf16* sV = sK + MK * MP;
-  bf16* sQ = sV + MK * MP;
-  bf16* sO = sQ + MK * MP;
-  float* sP = reinterpret_cast<float*>(sO + MK * MP);
-  float* sL = sP + MMA_P;   // lse * log2 e of the block's rows
-  float* sD = sL + MK;      // their delta
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3, off = a.Sk - a.Sq;
-  const bool dv_role = warp < 4;
-  const int kw = tl.r0 + (warp & 3) * 16;   // the warp's first key
-  load_rows<bf16, 256, MK, MP>(
-      sK, head_base<bf16>(in.k, in.k_b, in.k_h, tl.b, tl.h), in.k_s, tl.r0,
-      a.Sk);
-  load_rows<bf16, 256, MK, MP>(
-      sV, head_base<bf16>(in.v, in.v_b, in.v_h, tl.b, tl.h), in.v_s, tl.r0,
-      a.Sk);
-  cp_async_commit();
-  float acc[32][4];   // dV (dv_role) or dK
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int i = 0; i < rg.n; ++i) {
-    const int head = tl.h * a.G + i / rg.nq;
-    const int q0 = (rg.blk0 + i % rg.nq) * MK;
-    const long long bh = (long long)tl.b * a.Hq + head;
-    __syncthreads();   // the previous block's Q, dO, P, lse, delta are read
-    load_rows<bf16, 256, MK, MP>(
-        sQ, head_base<bf16>(in.q, in.q_b, in.q_h, tl.b, head), in.q_s, q0,
-        a.Sq);
-    load_rows<bf16, 256, MK, MP>(
-        sO, head_base<bf16>(in.dout, in.do_b, in.do_h, tl.b, head), in.do_s,
-        q0, a.Sq);
-    cp_async_commit();
-    if (threadIdx.x < MK) {
-      const int row = q0 + threadIdx.x;
-      const bool in_ = row < a.Sq;
-      sL[threadIdx.x] = in_ ? a.lse[bh * a.Sq + row] * LOG2E : INFINITY;
-      sD[threadIdx.x] = in_ ? a.delta[bh * a.Sq + row] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < MK; c0 += QC) {
-      float* slot = sP + ((((c0 / QC) & 1) * 4 + (warp & 3)) * 32 + lane) * 8;
-      float st[2][4];   // S^T (dV warps) or dP^T (dK warps): 16 keys x QC
-      mma_scores<2>(st, dv_role ? sK : sV, (warp & 3) * 16,
-                    dv_role ? sQ : sO, c0, lane);
-      if (dv_role) {
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = c0 + nt * 8 + 2 * tq + (e & 1), row = q0 + col;
-            const bool ok = row < a.Sq && visible(kw + g + 8 * (e >> 1),
-                                                  off + row, a.Sk, a.causal,
-                                                  a.window);
-            st[nt][e] = ok ? exp2f(st[nt][e] * a.scale_log2e - sL[col]) : 0.f;
-          }
-        reinterpret_cast<float4*>(slot)[0] =
-            make_float4(st[0][0], st[0][1], st[0][2], st[0][3]);
-        reinterpret_cast<float4*>(slot)[1] =
-            make_float4(st[1][0], st[1][1], st[1][2], st[1][3]);
-      }
-      __syncthreads();   // this chunk's P is in shared memory
-      if (!dv_role) {    // dS^T = P^T (dP^T - delta)
-        const float4 p0 = reinterpret_cast<const float4*>(slot)[0];
-        const float4 p1 = reinterpret_cast<const float4*>(slot)[1];
-        const float p[2][4] = {{p0.x, p0.y, p0.z, p0.w},
-                               {p1.x, p1.y, p1.z, p1.w}};
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            st[nt][e] = p[nt][e] *
-                        (st[nt][e] - sD[c0 + nt * 8 + 2 * tq + (e & 1)]);
-      }
-      // dV += P^T dO (dV warps), dK += dS^T Q (dK warps)
-      unsigned af[4];
-      c_to_a(af, st[0], st[1]);
-      mma_rows(acc, af, dv_role ? sO : sQ, c0, lane);
-    }
-  }
-  cp_async_wait<0>();   // a tile no query row sees never waited
-  if (dv_role)
-    store_frag_rows(static_cast<bf16*>(a.dv) + tl.b * a.dv_b + tl.h * a.dv_h,
-                    a.dv_s, kw, a.Sk, acc, 1.f, lane);
-  else
-    store_frag_rows(static_cast<bf16*>(a.dk) + tl.b * a.dk_b + tl.h * a.dk_h,
-                    a.dk_s, kw, a.Sk, acc, a.scale, lane);
-}
-
-__global__ void __launch_bounds__(PTHREADS, 1)
-bwd_mma_kernel(const Args a, const In in) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
-  const Tile tl = tile_of<MQ, MK>(a, a.start + (int)blockIdx.x);
-  const Range rg = range_of<MQ, MK, MK>(a, tl);
-  if (tl.dq)
-    dq_mma(a, in, tl, rg, sm);
-  else
-    dkv_mma(a, in, tl, rg, sm);
-}
-
-// --- float32: the CUDA cores ------------------------------------------------
-
-constexpr int FPP = FS + 4;   // a padded row of the P / dS tiles
-
-template <int D>
-constexpr int f32_smem() {   // resident pair, streamed pair, P, dS, lse, delta
-  return (int)sizeof(float) *
-         ((2 * FT + 2 * FS) * (D + 4) + 2 * FT * FPP + 2 * FS);
-}
-static_assert(f32_smem<256>() <= 232448, "227 KB of shared memory a block");
-
-// thread (ty, tx) of 16 x 16: s[i][j] = A row ty + 16 i . B row tx + 16 j
-// over d < D (A: FT resident rows, B: FS streamed rows, both [row][D + 4])
-template <int D>
-__device__ __forceinline__ void f32_scores(float (&s)[4][2], const float* A,
-                                           const float* B, int tx, int ty) {
-  constexpr int DP = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 bv[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * DP + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(A + (ty + 16 * i) * DP + d);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        s[i][j] += av.x * bv[j].x + av.y * bv[j].y + av.z * bv[j].z +
-                   av.w * bv[j].w;
-    }
-  }
-}
-
-// acc[i][g][c] += sum_j C[ty + 16 i][j] * B[j][g * 64 + 4 tx + c] over the FS
-// streamed rows j (C: [FT][FPP], B: [FS][D + 4])
-template <int D>
-__device__ __forceinline__ void f32_accumulate(float (&acc)[4][D / 64][4],
-                                               const float* C, const float* B,
-                                               int tx, int ty) {
-  constexpr int DP = D + 4;
-#pragma unroll 2
-  for (int j = 0; j < FS; j += 4) {
-    float c4[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 cv =
-          *reinterpret_cast<const float4*>(C + (ty + 16 * i) * FPP + j);
-      c4[i][0] = cv.x; c4[i][1] = cv.y; c4[i][2] = cv.z; c4[i][3] = cv.w;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 bv = *reinterpret_cast<const float4*>(
-            B + (j + jj) * DP + g * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][g][0] += c4[i][jj] * bv.x;
-          acc[i][g][1] += c4[i][jj] * bv.y;
-          acc[i][g][2] += c4[i][jj] * bv.z;
-          acc[i][g][3] += c4[i][jj] * bv.w;
-        }
-      }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void f32_zero(float (&acc)[4][D / 64][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-      acc[i][g][0] = acc[i][g][1] = acc[i][g][2] = acc[i][g][3] = 0.f;
-}
-
-// rows r0 + ty + 16 i (i < 4) of an accumulator, times `mul`, below `limit`,
-// into out[b, row, h, :]
-template <int D>
-__device__ __forceinline__ void f32_store(void* out, long long sb,
-                                          long long ss, long long sh, int b,
-                                          int h, int r0, int limit,
-                                          const float (&acc)[4][D / 64][4],
-                                          float mul, int tx, int ty) {
-  float* base = static_cast<float*>(out) + b * sb + h * sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row < limit) {
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g)
-        *reinterpret_cast<float4*>(base + row * ss + g * 64 + tx * 4) =
-            make_float4(acc[i][g][0] * mul, acc[i][g][1] * mul,
-                        acc[i][g][2] * mul, acc[i][g][3] * mul);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(PTHREADS, 1)
-bwd_f32_kernel(const Args a, const In in) {
-  constexpr int DP = D + 4, NG = D / 64;
-  extern __shared__ __align__(16) float fsm[];
-  float* sR0 = fsm;              // resident [FT][DP]: Q (dQ) or K (dK/dV)
-  float* sR1 = sR0 + FT * DP;    // dO or V
-  float* sS0 = sR1 + FT * DP;    // streamed [FS][DP]: K or Q
-  float* sS1 = sS0 + FS * DP;    // V or dO
-  float* sP = sS1 + FS * DP;     // [FT][FPP]: P^T (dK/dV tiles)
-  float* sG = sP + FT * FPP;     // [FT][FPP]: dS or dS^T
-  float* sL = sG + FT * FPP;     // [FS]: the streamed rows' lse
-  float* sD = sL + FS;           // [FS]: their delta
-  const Tile tl = tile_of<FT, FT>(a, a.start + (int)blockIdx.x);
-  const Range rg = range_of<FT, FT, FS>(a, tl);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int off = a.Sk - a.Sq;
-  float acc0[4][NG][4], acc1[4][NG][4];   // dQ or dK; dV
-  f32_zero<D>(acc0);
-  f32_zero<D>(acc1);
-  if (tl.dq) {
-    const int hk = tl.h / a.G;
-    load_rows<float, D, FT, DP>(
-        sR0, head_base<float>(in.q, in.q_b, in.q_h, tl.b, tl.h), in.q_s,
-        tl.r0, a.Sq);
-    load_rows<float, D, FT, DP>(
-        sR1, head_base<float>(in.dout, in.do_b, in.do_h, tl.b, tl.h),
-        in.do_s, tl.r0, a.Sq);
-    cp_async_commit();
-    const long long bh = (long long)tl.b * a.Hq + tl.h;
-    float lse[4], dlt[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = tl.r0 + ty + 16 * i;
-      lse[i] = row < a.Sq ? a.lse[bh * a.Sq + row] : INFINITY;
-      dlt[i] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
-    }
-    const float* kb = head_base<float>(in.k, in.k_b, in.k_h, tl.b, hk);
-    const float* vb = head_base<float>(in.v, in.v_b, in.v_h, tl.b, hk);
-    for (int it = 0; it < rg.n; ++it) {
-      const int k0 = (rg.blk0 + it) * FS;
-      __syncthreads();   // the previous block's K, V, dS are no longer read
-      load_rows<float, D, FS, DP>(sS0, kb, in.k_s, k0, a.Sk);
-      load_rows<float, D, FS, DP>(sS1, vb, in.v_s, k0, a.Sk);
+    float* ks = ring + (i & 1) * 2 * F::STR;
+    float* vs = ks + F::STR;
+    cp_async_wait<0>();   // this thread's chunks of block i have landed
+    split_rows<D, SB, NT>(ks);
+    split_rows<D, SB, NT>(vs);
+    __syncthreads();   // block i is split; block i - 1 is no longer read
+    if (i + 1 < rg.n) {
+      float* nk = ring + ((i + 1) & 1) * 2 * F::STR;
+      const int k1 = (rg.blk0 + i + 1) * SB;
+      load_block<D, SB, NT>(nk, kb, in.k_s, k1, a.Sk);
+      load_block<D, SB, NT>(nk + F::STR, vb, in.v_s, k1, a.Sk);
       cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      float s[4][2], dp[4][2];
-      f32_scores<D>(s, sR0, sS0, tx, ty);
-      f32_scores<D>(dp, sR1, sS1, tx, ty);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = tl.r0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const bool ok = row < a.Sq && visible(k0 + tx + 16 * j, off + row,
-                                                a.Sk, a.causal, a.window);
-          const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-          sG[(ty + 16 * i) * FPP + tx + 16 * j] = p * (dp[i][j] - dlt[i]);
-        }
-      }
-      __syncthreads();
-      f32_accumulate<D>(acc0, sG, sS0, tx, ty);   // dQ += dS K
     }
-    cp_async_wait<0>();   // a tile with no visible key never waited
-    f32_store<D>(a.dq, a.dq_b, a.dq_s, a.dq_h, tl.b, tl.h, tl.r0, a.Sq, acc0,
-                 a.scale, tx, ty);
-    return;
+    const int kp = (rg.blk0 + i) * SB + part * SW;   // the warp's first key
+    float s[NS][4], dp[NS][4];
+    scores<D, SB, NS>(s, dp, rq + grp * 16 * P, ks + part * SW * P,
+                      ro + grp * 16 * P, vs + part * SW * P, g, t);
+    const bool edge = (kp + SW > a.Sk) || (a.causal && kp + SW - 1 > off + qw) ||
+                      (a.window > 0 && kp <= off + qw + 15 - a.window);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = expf(s[n][e] * a.scale - lse[r]);
+        if (edge && !visible(kp + n * 8 + 2 * t + (e & 1), off + qw + g + 8 * r,
+                             a.Sk, a.causal, a.window))
+          p = 0.f;
+        s[n][e] = p * (dp[n][e] - dlt[r]);   // dS
+      }
+    accumulate<D, SB, NS, NO>(acc, s, ks + part * SW * P, acc, s, nullptr, 0,
+                              g, t);   // dQ += dS K
   }
-  load_rows<float, D, FT, DP>(
-      sR0, head_base<float>(in.k, in.k_b, in.k_h, tl.b, tl.h), in.k_s, tl.r0,
-      a.Sk);
-  load_rows<float, D, FT, DP>(
-      sR1, head_base<float>(in.v, in.v_b, in.v_h, tl.b, tl.h), in.v_s, tl.r0,
-      a.Sk);
-  cp_async_commit();
-  for (int it = 0; it < rg.n; ++it) {
-    const int head = tl.h * a.G + it / rg.nq;
-    const int q0 = (rg.blk0 + it % rg.nq) * FS;
-    const long long bh = (long long)tl.b * a.Hq + head;
-    __syncthreads();   // the previous block's Q, dO, P, dS are no longer read
-    load_rows<float, D, FS, DP>(
-        sS0, head_base<float>(in.q, in.q_b, in.q_h, tl.b, head), in.q_s, q0,
-        a.Sq);
-    load_rows<float, D, FS, DP>(
-        sS1, head_base<float>(in.dout, in.do_b, in.do_h, tl.b, head),
-        in.do_s, q0, a.Sq);
+  sum_parts<NO>(acc, ring, part, F::SQ, grp, F::RG, lane);
+  if (part == 0)
+    store_acc<NO>(a.dq, a.dq_b, a.dq_s, a.dq_h, tl.b, tl.h, qw, 0, a.Sq, acc,
+                  a.scale, g, t);
+}
+
+// dK and dV of T keys of one KV head: warp w owns keys 16 (w % RG) ... and
+// columns [DC (w / RG), + DC) over each streamed block of SB queries (of the
+// G query heads in turn)
+template <int D>
+__device__ __forceinline__ void dkv_tf32(const Args& a, const In& in,
+                                         const Tile& tl, const Range& rg,
+                                         float* sm) {
+  using F = F32<D>;
+  constexpr int P = F::P, T = F::T, SB = F::SB, NT = F::NW * 32;
+  constexpr int NS = SB / 8, DC = D / F::CK, NO = DC / 8;
+  float* rk = sm;             // K, as loaded
+  float* rv = rk + F::RES;    // V
+  float* ring = rv + F::RES;  // [stage]: Q (hi, lo), dO (hi, lo)
+  float* sl = ring + 4 * F::STR;   // [stage][SB]: the block's rows' lse
+  float* sd = sl + 2 * SB;         // ... and delta
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp % F::RG;
+  const int c0 = (warp / F::RG) * DC;   // the warp's first column
+  const int off = a.Sk - a.Sq;
+  const int kw = tl.r0 + grp * 16;   // the warp's first key
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int m = 0; m < NO; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[m][j] = dv[m][j] = 0.f;
+  // streamed block j: query rows [q0, q0 + SB) of query head `head`
+  auto stage_block = [&](int j, int stage) {
+    const int head = tl.h * a.G + j / rg.nq;
+    const int q0 = (rg.blk0 + j % rg.nq) * SB;
+    float* qs = ring + stage * 2 * F::STR;
+    load_block<D, SB, NT>(qs, head_base<float>(in.q, in.q_b, in.q_h, tl.b,
+                                               head), in.q_s, q0, a.Sq);
+    load_block<D, SB, NT>(qs + F::STR, head_base<float>(in.dout, in.do_b,
+                                                        in.do_h, tl.b, head),
+                          in.do_s, q0, a.Sq);
     cp_async_commit();
-    if (threadIdx.x < FS) {
+    if (threadIdx.x < SB) {
       const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < a.Sq ? a.lse[bh * a.Sq + row] : INFINITY;
-      sD[threadIdx.x] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
+      const long long bh = (long long)tl.b * a.Hq + head;
+      sl[stage * SB + threadIdx.x] = row < a.Sq ? a.lse[bh * a.Sq + row] : INFINITY;
+      sd[stage * SB + threadIdx.x] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
     }
-    cp_async_wait<0>();
-    __syncthreads();
-    float st[4][2], dpt[4][2];   // S^T, dP^T: keys x this block's queries
-    f32_scores<D>(st, sR0, sS0, tx, ty);
-    f32_scores<D>(dpt, sR1, sS1, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = tl.r0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = tx + 16 * j, row = q0 + col;
-        const bool ok = row < a.Sq &&
-                        visible(key, off + row, a.Sk, a.causal, a.window);
-        const float p = ok ? expf(st[i][j] * a.scale - sL[col]) : 0.f;
-        sP[(ty + 16 * i) * FPP + col] = p;
-        sG[(ty + 16 * i) * FPP + col] = p * (dpt[i][j] - sD[col]);
-      }
-    }
-    __syncthreads();
-    f32_accumulate<D>(acc1, sP, sS1, tx, ty);   // dV += P^T dO
-    f32_accumulate<D>(acc0, sG, sS0, tx, ty);   // dK += dS^T Q
+  };
+  if (rg.n > 0) {
+    load_rows<D, T, NT>(rk, head_base<float>(in.k, in.k_b, in.k_h, tl.b, tl.h),
+                        in.k_s, tl.r0, a.Sk);
+    load_rows<D, T, NT>(rv, head_base<float>(in.v, in.v_b, in.v_h, tl.b, tl.h),
+                        in.v_s, tl.r0, a.Sk);
+    stage_block(0, 0);
   }
-  cp_async_wait<0>();   // a tile no query row sees never waited
-  f32_store<D>(a.dk, a.dk_b, a.dk_s, a.dk_h, tl.b, tl.h, tl.r0, a.Sk, acc0,
-               a.scale, tx, ty);
-  f32_store<D>(a.dv, a.dv_b, a.dv_s, a.dv_h, tl.b, tl.h, tl.r0, a.Sk, acc1,
-               1.f, tx, ty);
+  for (int i = 0; i < rg.n; ++i) {
+    const int stage = i & 1;
+    float* qs = ring + stage * 2 * F::STR;
+    float* os = qs + F::STR;
+    cp_async_wait<0>();
+    split_rows<D, SB, NT>(qs);
+    split_rows<D, SB, NT>(os);
+    __syncthreads();   // block i is split; block i - 1 is no longer read
+    if (i + 1 < rg.n) stage_block(i + 1, stage ^ 1);
+    const int q0 = (rg.blk0 + i % rg.nq) * SB;   // the block's first query
+    const float* ls = sl + stage * SB;
+    const float* ds = sd + stage * SB;
+    float st[NS][4], dpt[NS][4];   // S^T, dP^T: 16 keys x SB queries
+    scores<D, SB, NS>(st, dpt, rk + grp * 16 * P, qs, rv + grp * 16 * P, os,
+                      g, t);
+    const bool edge = (kw + 15 >= a.Sk) || (a.causal && kw + 15 > off + q0) ||
+                      (a.window > 0 && kw <= off + q0 + SB - 1 - a.window);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        float p = expf(st[n][e] * a.scale - ls[col]);
+        if (edge && !visible(kw + g + 8 * (e >> 1), off + q0 + col, a.Sk,
+                             a.causal, a.window))
+          p = 0.f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - ds[col]);
+      }
+    // dV += P^T dO, dK += dS^T Q
+    accumulate<D, SB, NS, NO, 2>(dv, st, os, dk, dpt, qs, c0, g, t);
+  }
+  store_acc<NO>(a.dk, a.dk_b, a.dk_s, a.dk_h, tl.b, tl.h, kw, c0, a.Sk, dk,
+                a.scale, g, t);
+  store_acc<NO>(a.dv, a.dv_b, a.dv_s, a.dv_h, tl.b, tl.h, kw, c0, a.Sk, dv,
+                1.f, g, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::NW * 32, 1)
+bwd_tf32_kernel(const Args a, const In in) {
+  using F = F32<D>;
+  extern __shared__ __align__(16) float fsm[];
+  const Tile tl = tile_of<F::T, F::T>(a, a.start + (int)blockIdx.x);
+  const Range rg = range_of<F::T, F::T, F::SB>(a, tl);
+  if (tl.dq)
+    dq_tf32<D>(a, in, tl, rg, fsm);
+  else
+    dkv_tf32<D>(a, in, tl, rg, fsm);
 }
 
 // delta[row] = sum_d dO[row, d] * O[row, d] (f32), row = (b*Hq + h)*Sq + s;
@@ -1155,12 +1467,23 @@ int launch_with(Kernel kernel, int smem, int num_tiles, int threads,
   return (int)cudaGetLastError();
 }
 
-// the paths: 1 = bf16 wgmma (head_dim 64, 128), 2 = bf16 mma.sync (256),
-// 3 = f32 (64, 128, 256); 0 = not taken
+// the paths: 1 = bf16 wgmma (head_dim 64, 128), 2 = bf16 wgmma at 256,
+// 3 = f32 split TF32 (64, 128, 256); 0 = not taken
 int path_of(int dtype, int D) {
   if (dtype == 1) return D == 64 || D == 128 ? 1 : D == 256 ? 2 : 0;
   if (dtype == 0) return D == 64 || D == 128 || D == 256 ? 3 : 0;
   return 0;
+}
+
+int f32_tile(int D) {
+  return D == 64 ? F32<64>::T : D == 128 ? F32<128>::T : F32<256>::T;
+}
+
+template <int D>
+int launch_tf32(const Args& a, const In& in, int num_tiles,
+                cudaStream_t stream) {
+  return launch_with(bwd_tf32_kernel<D>, F32<D>::BYTES, num_tiles,
+                     F32<D>::NW * 32, stream, a, in);
 }
 
 }  // namespace
@@ -1169,11 +1492,11 @@ int path_of(int dtype, int D) {
 // (dtype, D), or -1 if none does; the wrapper sizes the tile space with them.
 extern "C" int flash_attention_bwd_block_q(int dtype, int D) {
   const int p = path_of(dtype, D);
-  return p == 1 ? BQ : p == 2 ? MQ : p == 3 ? FT : -1;
+  return p == 1 ? BQ : p == 2 ? D256::QT : p == 3 ? f32_tile(D) : -1;
 }
 extern "C" int flash_attention_bwd_block_k(int dtype, int D) {
   const int p = path_of(dtype, D);
-  return p == 1 ? BK : p == 2 ? MK : p == 3 ? FT : -1;
+  return p == 1 ? BK : p == 2 ? D256::KT : p == 3 ? f32_tile(D) : -1;
 }
 
 // delta [B, Hq, Sq] f32 (contiguous) = rowsum(dO * O); o, dout [B,Sq,Hq,D]
@@ -1251,32 +1574,39 @@ extern "C" int flash_attention_bwd_atom(
   a.scale = 1.f / sqrtf((float)D);
   a.scale_log2e = LOG2E * a.scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path != 1) {
+  if (path == 3) {
     const In in = {q, k, v, dout, q_b, q_s, q_h, k_b, k_s, k_h,
                    v_b, v_s, v_h, do_b, do_s, do_h};
-    if (path == 2)
-      return launch_with(bwd_mma_kernel, MMA_SMEM, num_tiles, PTHREADS, s, a,
-                         in);
-    return D == 64 ? launch_with(bwd_f32_kernel<64>, f32_smem<64>(),
-                                 num_tiles, PTHREADS, s, a, in)
-         : D == 128 ? launch_with(bwd_f32_kernel<128>, f32_smem<128>(),
-                                  num_tiles, PTHREADS, s, a, in)
-                    : launch_with(bwd_f32_kernel<256>, f32_smem<256>(),
-                                  num_tiles, PTHREADS, s, a, in);
+    return D == 64 ? launch_tf32<64>(a, in, num_tiles, s)
+         : D == 128 ? launch_tf32<128>(a, in, num_tiles, s)
+                    : launch_tf32<256>(a, in, num_tiles, s);
   }
+  // rows of the boxes: resident and streamed, query side and key side
+  const bool wide = path == 2;
+  const int q_res = wide ? D256::QT : BR, q_str = wide ? D256::KS : BS;
+  const int kv_res = wide ? D256::KT : BR, kv_str = wide ? D256::QS : BS;
   Maps m;
-  const int box_rows[2] = {BR, BS};
-  for (int rows : box_rows) {
-    const bool r = rows == BR;
-    if (int e = encode_operand(r ? &m.q_res : &m.q_str, q, B, Sq, Hq, D, q_b,
-                               q_s, q_h, rows)) return e;
-    if (int e = encode_operand(r ? &m.do_res : &m.do_str, dout, B, Sq, Hq, D,
-                               do_b, do_s, do_h, rows)) return e;
-    if (int e = encode_operand(r ? &m.k_res : &m.k_str, k, B, Sk, Hk, D, k_b,
-                               k_s, k_h, rows)) return e;
-    if (int e = encode_operand(r ? &m.v_res : &m.v_str, v, B, Sk, Hk, D, v_b,
-                               v_s, v_h, rows)) return e;
-  }
+  if (int e = encode_operand(&m.q_res, q, B, Sq, Hq, D, q_b, q_s, q_h, q_res))
+    return e;
+  if (int e = encode_operand(&m.do_res, dout, B, Sq, Hq, D, do_b, do_s, do_h,
+                             q_res))
+    return e;
+  if (int e = encode_operand(&m.q_str, q, B, Sq, Hq, D, q_b, q_s, q_h, q_str))
+    return e;
+  if (int e = encode_operand(&m.do_str, dout, B, Sq, Hq, D, do_b, do_s, do_h,
+                             q_str))
+    return e;
+  if (int e = encode_operand(&m.k_res, k, B, Sk, Hk, D, k_b, k_s, k_h, kv_res))
+    return e;
+  if (int e = encode_operand(&m.v_res, v, B, Sk, Hk, D, v_b, v_s, v_h, kv_res))
+    return e;
+  if (int e = encode_operand(&m.k_str, k, B, Sk, Hk, D, k_b, k_s, k_h, kv_str))
+    return e;
+  if (int e = encode_operand(&m.v_str, v, B, Sk, Hk, D, v_b, v_s, v_h, kv_str))
+    return e;
+  if (wide)
+    return launch_with(bwd_d256_kernel, D256::BYTES, num_tiles, NTHREADS, s,
+                       m, a);
   return D == 64 ? launch_with(flash_attn_bwd_kernel<64>, Smem<64>::BYTES,
                                num_tiles, NTHREADS, s, m, a)
                  : launch_with(flash_attn_bwd_kernel<128>, Smem<128>::BYTES,

@@ -187,6 +187,22 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // ---------------------------------------------------------------------------
+// named barriers (ids 1-15; 0 is __syncthreads): a set of warps hands shared
+// memory to another without stopping the rest of the block.  The arrival
+// orders the arriving threads' earlier shared-memory accesses before the
+// waiting threads' later ones; `threads` counts both sides.
+// ---------------------------------------------------------------------------
+
+template <int THREADS>
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory");
+}
+template <int THREADS>
+__device__ __forceinline__ void named_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
 
@@ -282,6 +298,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d[16] += A (64 x 16, shared, K-major) * B (16 x 32, shared); TB = 1: B is
+// MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 

@@ -9,6 +9,13 @@
 //   B (16x8,  col):  b0 = (rows 2t,2t+1, col g)     b1 = (rows 2t+8,+9, col g)
 //   C (16x8,  f32):  c0,c1 = (row g, cols 2t,2t+1)  c2,c3 = (row g+8, same cols)
 // so two neighbouring C tiles, packed to bf16, are one A fragment.
+//
+// The m16n8k8 tf32 x tf32 -> f32 multiply (mma.sync) takes f32 words whose
+// low 13 bits are zero (cvt.rna.tf32.f32 makes them):
+//   A (16x8,  row):  a0 = (row g, col t)   a1 = (row g+8, col t)
+//                    a2 = (row g, col t+4) a3 = (row g+8, col t+4)
+//   B (8x8,   col):  b0 = (row t, col g)   b1 = (row t+4, col g)
+//   C (16x8,  f32):  as above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +48,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 in, f32 out
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the TF32 value nearest x, ties away from zero, as an f32 bit pattern
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

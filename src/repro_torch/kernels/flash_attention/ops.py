@@ -235,13 +235,14 @@ def bwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
     """(query rows of a dQ tile, keys of a dK/dV tile) of the backward path
     that takes ``dtype`` at ``head_dim`` (exported by the .cu and checked at
     load): bf16 up to head_dim 128 is the wgmma path, two consumer
-    warpgroups of 64 rows each; bf16 at 256 the mma.sync path, eight warps
-    of 16 query rows, and 64 keys split between four dK and four dV warps;
-    f32 the CUDA-core path, 64 rows.  The CPU's plain atoms take the same
+    warpgroups of 64 rows each; bf16 at 256 its variant, dQ tiles of 128
+    query rows and dK/dV tiles of 64 keys split between a dV and a dK
+    warpgroup; f32 the split-TF32 path, 128 rows (32 at head_dim 256, where
+    a row takes 1 KB of shared memory).  The CPU's plain atoms take the same
     tiles, so an atom writes the same rows on either device."""
     if dtype == torch.bfloat16:
         return (128, 128) if head_dim <= 128 else (128, 64)
-    return (64, 64)
+    return (32, 32) if head_dim == 256 else (128, 128)
 
 
 def _blocks(q) -> tuple[int, int]:

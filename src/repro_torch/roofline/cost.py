@@ -242,8 +242,9 @@ SCORE_FLOPS_BWD = 10
 # the backward's products a visited score element: S and dP recomputed for
 # the dQ tiles and again for the dK / dV tiles, then dQ, dK and dV (7 of
 # 2*D each).  Every path issues these seven: bf16 at head_dim 64 / 128
-# (wgmma), bf16 at 256 (mma.sync; its dV warps take S, its dK warps dP) and
-# f32 (CUDA cores)
+# (wgmma), bf16 at 256 (wgmma; its dV warpgroup takes S, its dK warpgroup
+# dP) and f32 (split TF32: each product as three TF32 products on the
+# tensor cores, counted here once, as the reference's f32 product)
 BWD_DOT_FLOPS_PER_D = 14
 
 

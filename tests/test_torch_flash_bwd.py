@@ -245,11 +245,11 @@ def test_backward_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("dtype,D,blocks", [
     (torch.bfloat16, 64, (128, 128)), (torch.bfloat16, 256, (128, 64)),
-    (torch.float32, 64, (64, 64)), (torch.float32, 256, (64, 64))],
+    (torch.float32, 64, (128, 128)), (torch.float32, 256, (32, 32))],
     ids=str)
 def test_backward_blocks_of_each_path_compose_in_any_order(dtype, D, blocks):
-    """Each kernel path's tiles (``ops.bwd_blocks``: the wgmma path, the
-    mma.sync path at head_dim 256, the f32 path): ``ref.bwd_tile`` at them
+    """Each kernel path's tiles (``ops.bwd_blocks``: the wgmma path, its
+    head_dim-256 variant, the split-TF32 f32 path): ``ref.bwd_tile`` at them
     partitions the outputs, and the plain atoms, one tile at a time in a
     random order, equal one atom of every tile bit for bit."""
     assert flash_ops.bwd_blocks(dtype, D) == blocks

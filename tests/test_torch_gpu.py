@@ -717,8 +717,8 @@ def test_flash_bwd_kernel_tile_map(cuda, D, B, Sq, Sk, Hq, Hk, causal,
             assert torch.equal(g[m], f[m])
 
 
-# the paths beside bf16 at head_dim 64 / 128: bf16 at 256 (mma.sync) and
-# f32 at every head dim (CUDA cores).  bf16 is held row by row
+# the paths beside bf16 at head_dim 64 / 128: bf16 at 256 (wgmma) and f32
+# at every head dim (split TF32).  bf16 is held row by row
 # (``_bwd_row_err``); f32 against f32 differs only in summation order, ~1e-6
 # of a gradient's largest |value|, but a row whose gradient cancels (dP close
 # to delta) is ~1e-7 of that and reads the rounding of delta, so f32 is held
@@ -768,6 +768,42 @@ def test_flash_bwd_new_paths_match_plain_and_compose(cuda, dtype, D, seed):
     again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse,
                                           n_atoms=len(order), order=order,
                                           **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# keys that span each ring many times over (bf16 at 256: dQ tiles stream
+# blocks of 32 keys through a ring of 3, dK/dV tiles blocks of 64 queries of
+# every head of the group through a ring of 2; f32: blocks of 16 through a
+# ring of 2), so the rings wrap and the mbarriers' phases flip many times:
+# (dtype, D, B, S, Hq, Hk, window), causal
+BWD_LONG = [(torch.bfloat16, 256, 1, 1700, 8, 1, 700),
+            (torch.float32, 128, 1, 1100, 2, 2, 0)]
+
+
+@pytest.mark.parametrize("dtype,D,B,S,Hq,Hk,window", BWD_LONG, ids=str)
+def test_flash_bwd_new_paths_long_rings(cuda, dtype, D, B, S, Hq, Hk, window):
+    """The new paths over 1100-1700 keys (MQA with a window at head_dim 256,
+    f32 causal at 128) against the plain backward atoms in f32 on the same
+    inputs, within ``BWD_NEW_TOL``; atoms in a random order bit-equal to
+    one."""
+    rng = np.random.default_rng(S + D)
+    q, do = (_randn(rng, (B, S, Hq, D), dtype, cuda) for _ in range(2))
+    k, v = (_randn(rng, (B, S, Hk, D), dtype, cuda) for _ in range(2))
+    kw = dict(causal=True, window=window)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    want = [torch.zeros(t.shape, device=cuda) for t in (q, k, v)]
+    bq, bk = flash_ops.bwd_blocks(dtype, D)
+    n = flash_ops.bwd_tile_space(q, k)
+    flash_bwd_atom_ref(q.float(), k.float(), v.float(), do.float(), lse,
+                       attention_delta_ref(o, do), *want, start=0,
+                       num_tiles=n, block_q=bq, block_k=bk, **kw)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert _bwd_new_err(g, w) <= BWD_NEW_TOL[dtype]
+    order = tuple(int(i) for i in rng.permutation(7))
+    again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, n_atoms=7,
+                                          order=order, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
