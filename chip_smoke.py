@@ -9,9 +9,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (values, atom order-freedom,
 rows / tiles outside an atom untouched, the route each case took: for decode
 attention every split count of the split-KV kernel; key pitches it cannot
-take are refused; head_dim 256 and sliding windows; the flash backward's
-three paths: bf16 at head_dim 64 / 128 and 256, f32), times them beside
-their bound (decode attention at three shapes, flash attention at two), then
+take are refused; head_dim 256 and sliding windows; the float32 routes of
+flash attention and the atom matmul, split TF32 on the tensor cores; the
+flash backward's three paths: bf16 at head_dim 64 / 128 and 256, f32),
+times them beside their bound (decode attention at three shapes, flash attention at two), then
 drives the paths, each with the kernels' launch counts set to 0 just before
 and read just after: it serves full-size ``llama3-8b``, ``olmo-1b``,
 ``qwen2-moe-a2.7b`` (MoE), ``recurrentgemma-9b`` (RG-LRU and local attention
@@ -159,9 +160,25 @@ BWD_PATH_SHAPES = {
                  (1, 150, 2, 2, 128, "float32", True, 0)),
 }
 BWD_F32_TOL = 1e-5
+# flash attention's float32 forward (split TF32 on the tensor cores) against
+# its plain version on the same inputs, beside the absolute ``TOL``: the max
+# abs error over the output's largest |value|.  f32 against f32 differs in
+# summation order and in the split's dropped lo x lo terms (~2^-22 of a
+# product), ~1e-6 of the largest |value| (3e-7 to 3e-6 on an H100, PERF.md
+# §6); one TF32 product instead of three reads ~1e-3
+# (tests/test_torch_tf32_forward.py)
+FLASH_F32_TOL = 1e-5
 # dense TF32 on the tensor cores (H100 SXM data sheet, 700 W): the f32
-# backward's design floor takes each product as three TF32 products
+# routes' design floor takes each product as three TF32 products
 TF32_PEAK = 494.7e12
+
+
+def f32_ops_ms(flops):
+    """The least time the card takes for ``flops`` of float32 work: the
+    smaller of the CUDA cores' f32 rate and three TF32 products a product
+    (split TF32, f32's precision) at the TF32 rate; the f32 routes of K2,
+    K3 and K2-bwd take the second, so it is their bound."""
+    return min(flops / H100.peak_flops_f32, 3 * flops / TF32_PEAK) * 1e3
 # the train phase's kernel-vs-plain step (full-width olmo-1b, 2 layers, the
 # same params and batch): the loss, and every layer's slice of every
 # gradient leaf as its relative L2 error ||g_kernel - g_plain|| / ||g_plain||.
@@ -362,6 +379,31 @@ def flash_misses(got, want, dtype) -> tuple:
     return (got.float() - want.float()).abs().max().item(), TOL[("flash", dtype)]
 
 
+def f32_readings(torch, ops, ref, q, k, v, got, want, what, *, causal,
+                 window) -> dict:
+    """The float32 forward's tighter checks: the max abs error over the
+    output's largest |value| within ``FLASH_F32_TOL``, and the lse it saves
+    against the plain logsumexp within ``LSE_TOL`` (+inf for the same empty
+    rows)."""
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max().clamp_min(1e-30)).item()
+    if not rel <= FLASH_F32_TOL:
+        fail(f"{what}: max abs error over max|output| {rel} > "
+             f"{FLASH_F32_TOL}")
+    _, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    _, want_lse = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    fin = torch.isfinite(want_lse)
+    lse_err = ((lse[fin] - want_lse[fin]).abs().max().item() if bool(fin.any())
+               else 0.0)
+    if not (lse_err <= LSE_TOL and torch.equal(torch.isinf(lse), ~fin)):
+        fail(f"{what}: lse reads {lse_err} against the plain logsumexp "
+             f"(limit {LSE_TOL}) or its empty rows differ")
+    return {"rel_err": rel, "rel_err_limit": FLASH_F32_TOL, "lse_err": lse_err,
+            "lse_err_limit": LSE_TOL}
+
+
 def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True,
                 window=0):
     from repro_torch.kernels.flash_attention import ops, ref
@@ -379,6 +421,9 @@ def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True,
         fail(f"{what}: max abs err {err} > {TOL[('flash', dtype)]}")
     if not rel <= rel_limit:
         fail(f"{what}: reads {rel} against its plain version, > {rel_limit}")
+    f32 = f32_readings(torch, ops, ref, q, k, v, got, want, what,
+                       causal=causal, window=window) if dtype == "float32" \
+        else {}
     unwindowed = None
     if window:      # the kernel run without its window must miss the limit
         unwindowed, _ = flash_misses(
@@ -408,7 +453,7 @@ def check_flash(torch, dev, gen, *, B, Sq, Sk, Hq, Hk, D, dtype, causal=True,
         fail("flash_attention_atom wrote outside its tiles")
     return {"max_abs_err": err, "err_limit": TOL[("flash", dtype)],
             "row_err": rel, "row_err_limit": rel_limit,
-            "unwindowed_row_err": unwindowed}
+            "unwindowed_row_err": unwindowed, **f32}
 
 
 def _mm_err(torch, got, want, dtype):
@@ -422,7 +467,7 @@ def matmul_route(torch, ops, a, b, c, bn):
     launch) and its CTA tile."""
     vec = ops.vec16(a, b, c)
     route = ("wgmma+tma" if a.dtype == torch.bfloat16 and vec
-             else "cp.async" if vec else "guarded")
+             else "split-tf32" if vec else "guarded")
     return route, ops.cta_shape(a.dtype, bn, vec)
 
 
@@ -479,7 +524,8 @@ def check_matmul(torch, dev, gen, *, M, N, K, dtype, bm=128, bn=None,
 def matmul_headline(torch, dev, gen, flush, iters, real, dtype="bfloat16"):
     """The atomized matmul at the widest llama3-8b projection of a
     1000-token prefill (w_i / w_g: 4096 -> 14336), one atom; bf16 takes the
-    wgmma route, float32 the cp.async route."""
+    wgmma route, float32 the split-TF32 route (``mma.sync``, three TF32
+    products a product; ``tf32_floor_ms`` is that work at the TF32 rate)."""
     from repro_torch.kernels.atom_matmul import ops, ref
     from repro_torch.kernels.atoms import tile_count
     M, K, N = (1000, 4096, 14336) if real else (40, 64, 300)
@@ -515,12 +561,14 @@ def matmul_headline(torch, dev, gen, flush, iters, real, dtype="bfloat16"):
     n_bytes = (M * K + K * N + M * N) * a.element_size()
     flops = 2 * M * N * K
     t_bytes = n_bytes / H100.hbm_bw * 1e3
-    t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
-                     else H100.peak_flops_f32) * 1e3
+    t_ops = (flops / H100.peak_flops * 1e3 if dtype == "bfloat16"
+             else f32_ops_ms(flops))
     return {"shape": {"M": M, "K": K, "N": N, "block_m": 256,
                       "block_n": 256}, "route": route,
             "dtype": dtype, "max_abs_err": err, "err_limit": limit,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "tf32_floor_ms": (3 * flops / TF32_PEAK * 1e3
+                              if dtype == "float32" else None),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "enqueue_ms": host_ms,
             "bytes": n_bytes, "flops": flops,
@@ -628,6 +676,10 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
     if not rel <= rel_limit:
         fail(f"flash_attention {dtype} at the {shape} shape: reads {rel} "
              f"against its plain version, > {rel_limit}")
+    f32 = (f32_readings(torch, ops, ref, q, k, v, got, want,
+                        f"flash_attention float32 at the {shape} shape",
+                        causal=causal, window=W)
+           if dtype == "float32" else {})
     faults = None
     if not causal and S % KV_BLOCK and S > KV_BLOCK:
         # a kernel that left out the keys of the last, partial KV block
@@ -680,14 +732,18 @@ def flash_headline(torch, dev, gen, iters, real, dtype="bfloat16",
     flops = 4 * B * Hq * D * pairs
     n_bytes = (2 * B * S * Hq * D + 2 * B * S * Hk * D) * esz
     t_bytes = n_bytes / H100.hbm_bw * 1e3
-    t_ops = flops / (H100.peak_flops if dtype == "bfloat16"
-                     else H100.peak_flops_f32) * 1e3
+    t_ops = (flops / H100.peak_flops * 1e3 if dtype == "bfloat16"
+             else f32_ops_ms(flops))
     return {"shape": {"B": B, "Sq": S, "Sk": S, "Hq": Hq, "Hk": Hk, "D": D,
                       "causal": causal, "window": W},
+            "route": (("wgmma+tma" if dtype == "bfloat16" else "split-tf32")
+                      if dev.type == "cuda" else "plain"),
             "dtype": dtype, "max_abs_err": err,
             "err_limit": TOL[("flash", dtype)], "row_err": rel,
-            "row_err_limit": rel_limit, "planted_faults": faults, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "row_err_limit": rel_limit, **f32, "planted_faults": faults,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "tf32_floor_ms": (3 * flops / TF32_PEAK * 1e3
+                              if dtype == "float32" else None),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "enqueue_ms": host_ms,
             "bytes": n_bytes, "flops": flops,
@@ -969,7 +1025,8 @@ def check_flash_bwd_path(torch, dev, gen, *, B, S, Hq, Hk, D, dtype, causal,
     n_bytes = (4 * B * S * Hq * D + 4 * B * S * Hk * D) * q.element_size() \
         + 2 * B * Hq * S * 4       # q,o,do,dq; k,v,dk,dv; lse,delta
     t_bytes = n_bytes / H100.hbm_bw * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = (flops / peak * 1e3 if dt == torch.bfloat16
+             else f32_ops_ms(flops))
     return {"dtype": dtype, "blocks": ops.bwd_blocks(dt, D),
             "max_abs_err": max((g.float() - w).abs().max().item()
                                for g, w in zip(got, want)),
@@ -1108,6 +1165,16 @@ def kernels_phase(torch, dev, real: bool):
                dict(M=300, N=700, K=70, dtype="bfloat16", bm=128, bn=384),
                dict(M=200, N=260, K=96, dtype="float32", bm=256, bn=128,
                     strided=True)]
+        # the f32 routes at the projections' K: split TF32 (K 4096 and
+        # 14336, a column-range view), and rows that are not 16-byte chunks
+        mm += [dict(M=300, N=520, K=4096, dtype="float32", bm=256,
+                    route="split-tf32"),
+               dict(M=130, N=260, K=14336, dtype="float32", bm=128, bn=256,
+                    route="split-tf32"),
+               dict(M=1000, N=384, K=4096, dtype="float32", bm=256, bn=128,
+                    strided=True, route="split-tf32"),
+               dict(M=257, N=129, K=4096, dtype="float32", bm=128,
+                    route="guarded")]
         # the bf16 paths: wgmma+TMA with 128 x 256 and 128 x 128 CTA tiles at
         # ragged M, N, K; a column-range view (row pitch wider than its
         # width); K = 65, whose rows TMA cannot address
@@ -1188,6 +1255,18 @@ def kernels_phase(torch, dev, real: bool):
     del flush
     if real:
         torch.cuda.synchronize()
+        # the f32 routes' registers and spills, from the build phase's log
+        from repro_torch.kernels import build
+        k3_f32["ptxas"] = build.ptxas_report("atom_matmul")["kernels"][
+            "matmul_tf32_kernel"]
+        k2_f32["ptxas"] = build.ptxas_report("flash_attention")["kernels"][
+            f"flash_attn_tf32_kernel<{k2_f32['shape']['D']}>"]
+        k1_f32["ptxas"] = {
+            k: v for k, v in build.ptxas_report("decode_attention")[
+                "kernels"].items()
+            if k.startswith(f"decode_attn_kernel<{k1_f32['shape']['D']},")}
+    # K1's f32 route takes no TF32 products (the CUDA cores)
+    k1_f32.update(route=k1_f32["took"]["route"], tf32_floor_ms=None)
     emit("kernels", cases=cases, decode_attention=k1,
          decode_attention_long_context=k1_long,
          decode_attention_ring_d256=k1_ring,
@@ -1206,6 +1285,9 @@ def kernels_phase(torch, dev, real: bool):
                   "decode: key pitches the kernels cannot address raise",
                   "flash bf16: each query row within 2^-6 of its max|output|"
                   " (f32: max abs error)",
+                  "flash f32 (split TF32): max abs error within 1e-5 of "
+                  "max|output| and the lse within 1e-4, at every f32 case "
+                  "and the headline",
                   "flash: with a window, the kernel without it reads above "
                   "that limit",
                   "flash windowed headline: a window started one KV block "

@@ -124,8 +124,9 @@ def vec16(a, b, c) -> bool:
     """Whether the rows of every operand are whole 16-byte chunks (width,
     row pitch and base address): the routing decision, made before the
     launch.  Then bf16 takes the wgmma kernel fed by TMA (which needs just
-    that), f32 the 16-byte ``cp.async`` loads; otherwise both take guarded
-    element loads.  Raises for an operand the kernel does not take."""
+    that), f32 the split-TF32 kernel on the tensor cores (16-byte
+    ``cp.async`` loads); otherwise both take guarded element loads (f32 on
+    the CUDA cores).  Raises for an operand the kernel does not take."""
     return all(build.check_matmul_operand("atom matmul", name, t)[1]
                for name, t in (("a", a), ("b", b), ("c", c)))
 

@@ -3,11 +3,14 @@
 ``matmul_ref`` is the product in f32, cast once.  ``matmul_atom_ref`` computes
 the output tiles of one atom one by one, with true-size slices at the ragged
 edge, and writes them in place into the running output: the function the CUDA
-kernel computes.
+kernel computes.  ``matmul_split_ref`` emulates the f32 kernel's arithmetic
+(split TF32, a K step at a time) for the tests.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.tf32 import tf32_split_product
 
 
 def matmul_ref(a, b, out_dtype=None):
@@ -30,3 +33,16 @@ def matmul_atom_ref(a, b, c, *, start: int, num_tiles: int, block_m: int,
         r1, c1 = min(M, r0 + block_m), min(N, c0 + block_n)
         c[r0:r1, c0:c1] = matmul_ref(a[r0:r1], b[:, c0:c1], c.dtype)
     return c
+
+
+def matmul_split_ref(a, b, *, k_step: int = 32):
+    """``a @ b`` (f32) as the f32 kernel's split-TF32 route sums it: each K
+    step of ``k_step`` products in split TF32 (``tf32_split_product``), the
+    steps added to the running sum in K order.  A plain emulation for the
+    tests; no path calls it."""
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, a.shape[1], k_step):
+        out += tf32_split_product(a[:, k0:k0 + k_step].float(),
+                                  b[k0:k0 + k_step].float())
+    return out

@@ -12,8 +12,10 @@
 //
 // What bounds it on this card: operations, at the shapes of a prefill (M in
 // the hundreds or more): 2*M*N*K at 989 TFLOP/s (bf16 tensor cores) or
-// 67 TFLOP/s (f32 outside them), against (M*K + K*N + M*N) elements at
-// 3.35 TB/s.  For a few rows (decode, M = 4) the bytes of B.
+// 67 TFLOP/s (f32 outside them; the split-TF32 route's own floor is three
+// TF32 products a product at 494.7 TFLOP/s, and mma.sync reaches ~320 of
+// those on this card), against (M*K + K*N + M*N) elements at 3.35 TB/s.
+// For a few rows (decode, M = 4) the bytes of B.
 //
 // What the design does about it:
 //   * the atom tile is covered by CTA tiles of a fixed shape; one launch runs
@@ -44,15 +46,29 @@
 //   * bfloat16 rows that TMA cannot address (K = 65, N = 129, a pitch not a
 //     multiple of 8): 128 x 128 CTA tiles, one CTA each, mma.sync m16n8k16
 //     with guarded element loads through a 3-stage ring;
-//   * float32: full f32 FMA (no TF32: wgmma has no f32 mode), 128 x 128 CTA
-//     tiles, each thread an 8 x 8 piece, through a 3-stage cp.async ring
-//     (guarded element loads where rows are not whole 16-byte chunks).
+//   * float32 rows of whole 16-byte chunks: split TF32 on the tensor cores
+//     (wgmma takes TF32 only K-major, and B lies N-major): each operand is hi
+//     = tf32(x) and lo = x - hi truncated, each product lo_a hi_b + hi_a lo_b
+//     + hi_a hi_b on mma.sync m16n8k8.  128 x 128 CTA tiles of 8 warps (64 x
+//     32 each), one CTA an SM; A and B K steps of 32 land by cp.async in a
+//     ring of 3 and are split once into hi and lo planes, the next step's
+//     split interleaved with this step's products (A [m][k], fragments by
+//     ldmatrix; B [k][n] as it lies, pitch 8 mod 32 words).  The tensor
+//     cores add into an accumulator rounding toward zero, so each K step's
+//     12-product chains go to fresh accumulators, added to the running sums
+//     on the CUDA cores in K order: still one fixed sum an output element;
+//   * float32 rows that are not whole 16-byte chunks (K = 65, N = 129): full
+//     f32 FMA on the CUDA cores, each thread an 8 x 8 piece of a 128 x 128
+//     tile, guarded element loads through a 3-stage ring.
 // What holds it back: the K loop of a CTA tile is not split (the atom
 // contract), so a grid of few CTA tiles leaves SMs idle, and the last wave of
 // a large one is partial; consumer warpgroups wait for their own products
 // before the epilogue, whose stores from registers use half of each 32-byte
 // sector.  B is re-read from device memory once per row of atom tiles that
-// the L2 cannot hold.
+// the L2 cannot hold.  The split-TF32 route runs at about 2.8x its TF32
+// floor at the projection shape (PERF.md §6): one CTA an SM (252
+// registers, 215 KB of ring), a barrier and 64 fresh-accumulator adds a K
+// step; a producer/consumer split of the warps measured no faster.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,32 +108,19 @@ __device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
 }
 
 // rows [r0, r0+R) x columns [c0, c0+C) of a row-major operand -> a shared
-// tile of row pitch LD; elements outside [0, nrows) x [0, ncols) are zero.
-// VEC: 16-byte cp.async (ncols, the pitch and the base are whole 16-byte
-// chunks, so a chunk is wholly in range or wholly out); else guarded element
-// loads.
-template <typename T, int R, int C, int LD, bool VEC>
+// tile of row pitch LD by guarded element loads; elements outside [0,
+// nrows) x [0, ncols) are zero.
+template <typename T, int R, int C, int LD>
 __device__ __forceinline__ void stage(T* dst, const T* src, long long ld,
                                       int r0, int c0, int nrows, int ncols) {
-  if constexpr (VEC) {
-    constexpr int E = 16 / (int)sizeof(T);   // elements of a chunk
-    constexpr int CH = C / E;                // chunks of a row
-    for (int i = threadIdx.x; i < R * CH; i += NTHREADS) {
-      const int r = i / CH, c = (i % CH) * E;
-      const bool ok = r0 + r < nrows && c0 + c < ncols;
-      cp_async_16(dst + r * LD + c,
-                  ok ? src + (long long)(r0 + r) * ld + c0 + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * C; i += NTHREADS) {
-      const int r = i / C, c = i % C;
-      T x;
-      if (r0 + r < nrows && c0 + c < ncols)
-        x = src[(long long)(r0 + r) * ld + c0 + c];
-      else
-        set_zero(x);
-      dst[r * LD + c] = x;
-    }
+  for (int i = threadIdx.x; i < R * C; i += NTHREADS) {
+    const int r = i / C, c = i % C;
+    T x;
+    if (r0 + r < nrows && c0 + c < ncols)
+      x = src[(long long)(r0 + r) * ld + c0 + c];
+    else
+      set_zero(x);
+    dst[r * LD + c] = x;
   }
 }
 
@@ -161,7 +164,6 @@ constexpr int LDB16 = TN + 8;
 constexpr int SA16 = TM * LDA16, SB16 = BK16 * LDB16;   // elements a stage
 constexpr int SMEM16 = STAGES * (SA16 + SB16) * (int)sizeof(__nv_bfloat16);
 
-template <bool VEC>
 __global__ void __launch_bounds__(NTHREADS, 2) matmul_bf16_kernel(Args p) {
   int row0, col0;
   if (!cta_origin<TM, TN>(p, (int)blockIdx.x, row0, col0)) return;
@@ -184,10 +186,10 @@ __global__ void __launch_bounds__(NTHREADS, 2) matmul_bf16_kernel(Args p) {
 
   auto load = [&](int kt) {
     const int s = kt % STAGES;
-    stage<__nv_bfloat16, TM, BK16, LDA16, VEC>(sA + s * SA16, A, p.lda, row0,
-                                               kt * BK16, p.M, p.K);
-    stage<__nv_bfloat16, BK16, TN, LDB16, VEC>(sB + s * SB16, B, p.ldb,
-                                               kt * BK16, col0, p.K, p.N);
+    stage<__nv_bfloat16, TM, BK16, LDA16>(sA + s * SA16, A, p.lda, row0,
+                                          kt * BK16, p.M, p.K);
+    stage<__nv_bfloat16, BK16, TN, LDB16>(sB + s * SB16, B, p.ldb, kt * BK16,
+                                          col0, p.K, p.N);
   };
 
 #pragma unroll
@@ -231,13 +233,13 @@ __global__ void __launch_bounds__(NTHREADS, 2) matmul_bf16_kernel(Args p) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        store2<VEC>(C, p.ldc, row0 + wm + i * 16 + g + 8 * h,
+        store2<false>(C, p.ldc, row0 + wm + i * 16 + g + 8 * h,
                     col0 + wn + j * 8 + 2 * tq, p.M, p.N, acc[i][j][2 * h],
                     acc[i][j][2 * h + 1]);
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores, full f32
+// float32 rows that are not whole 16-byte chunks: CUDA cores, full f32
 // ---------------------------------------------------------------------------
 
 constexpr int BK32 = 16;
@@ -246,7 +248,6 @@ constexpr int LDB32 = TN + 4;
 constexpr int SA32 = TM * LDA32, SB32 = BK32 * LDB32;
 constexpr int SMEM32 = STAGES * (SA32 + SB32) * (int)sizeof(float);
 
-template <bool VEC>
 __global__ void __launch_bounds__(NTHREADS, 2) matmul_f32_kernel(Args p) {
   int row0, col0;
   if (!cta_origin<TM, TN>(p, (int)blockIdx.x, row0, col0)) return;
@@ -268,10 +269,10 @@ __global__ void __launch_bounds__(NTHREADS, 2) matmul_f32_kernel(Args p) {
 
   auto load = [&](int kt) {
     const int s = kt % STAGES;
-    stage<float, TM, BK32, LDA32, VEC>(sA + s * SA32, A, p.lda, row0,
-                                       kt * BK32, p.M, p.K);
-    stage<float, BK32, TN, LDB32, VEC>(sB + s * SB32, B, p.ldb, kt * BK32,
-                                       col0, p.K, p.N);
+    stage<float, TM, BK32, LDA32>(sA + s * SA32, A, p.lda, row0, kt * BK32,
+                                  p.M, p.K);
+    stage<float, BK32, TN, LDB32>(sB + s * SB32, B, p.ldb, kt * BK32, col0,
+                                  p.K, p.N);
   };
 
 #pragma unroll
@@ -311,9 +312,169 @@ __global__ void __launch_bounds__(NTHREADS, 2) matmul_f32_kernel(Args p) {
     const int r = row0 + (i >> 2) * 64 + ty * 4 + (i & 3);
 #pragma unroll
     for (int j = 0; j < 8; j += 2)
-      store2<VEC>(C, p.ldc, r, col0 + (j >> 2) * 64 + tx * 4 + (j & 3), p.M,
-                  p.N, acc[i][j], acc[i][j + 1]);
+      store2<false>(C, p.ldc, r, col0 + (j >> 2) * 64 + tx * 4 + (j & 3), p.M,
+                    p.N, acc[i][j], acc[i][j + 1]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// float32 rows of whole 16-byte chunks: split TF32 on the tensor cores
+// (mma.sync m16n8k8, three products a product), 128 x 128 CTA tiles
+// ---------------------------------------------------------------------------
+
+constexpr int BKT = 32;                    // K step: one stage of the ring
+constexpr int PAT = BKT + 4;               // A [m][k] planes: 4 mod 8 words
+constexpr int PBT = TN + 8;                // B [k][n] planes: 8 mod 32 words
+constexpr int PLANE_A = TM * PAT, PLANE_B = BKT * PBT;   // floats a plane
+constexpr int STAGE_T = 2 * (PLANE_A + PLANE_B);         // hi, lo of each
+constexpr int SMEM_T = STAGES * STAGE_T * (int)sizeof(float);
+static_assert(SMEM_T <= 232448, "227 KB of shared memory a block");
+static_assert(TM * BKT / 4 % NTHREADS == 0 && BKT * TN / 4 % NTHREADS == 0 &&
+                  (TM + TN) * BKT / 4 / NTHREADS % (BKT / 8) == 0,
+              "every thread lands and splits as many chunks, as many a k-step");
+
+// rows [r0, r0+R) x columns [c0, c0+C) of a row-major f32 operand whose
+// rows are whole 16-byte chunks -> rows of pitch LD at `dst` by cp.async,
+// zero outside [0, nrows) x [0, ncols); thread i lands chunks i, i +
+// NTHREADS, ... (a fixed count, unrolled), as `split_chunk` splits them
+template <int R, int C, int LD>
+__device__ __forceinline__ void land(float* dst, const float* src,
+                                     long long ld, int r0, int c0, int nrows,
+                                     int ncols) {
+  constexpr int CH = C / 4;
+#pragma unroll
+  for (int u = 0; u < R * CH / NTHREADS; ++u) {
+    const int i = threadIdx.x + u * NTHREADS;
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = r0 + r < nrows && c0 + c < ncols;
+    cp_async_16(dst + r * LD + c,
+                ok ? src + (long long)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
+constexpr int CA = TM * BKT / 4 / NTHREADS, CB = BKT * TN / 4 / NTHREADS;
+
+// this thread's chunk u of stage s (A's CA chunks, then B's CB, as `land`
+// walks them), raw in the lo plane -> hi, lo in place
+__device__ __forceinline__ void split_chunk(float* s, int u) {
+  if (u < CA) {
+    const int i = threadIdx.x + u * NTHREADS;
+    tf32_split_chunk(s + (i / (BKT / 4)) * PAT + (i % (BKT / 4)) * 4,
+                     PLANE_A);
+  } else {
+    const int i = threadIdx.x + (u - CA) * NTHREADS;
+    tf32_split_chunk(s + 2 * PLANE_A + (i / (TN / 4)) * PBT + (i % (TN / 4)) * 4,
+                     PLANE_B);
+  }
+}
+
+// A stage of the ring is A's hi and lo planes [TM][PAT], then B's [BKT][PBT];
+// cp.async lands the raw rows in the lo planes, two steps ahead, and each
+// thread splits its own chunks of step k+1 a few at a time between step k's
+// products (split as a block of their own, they left the tensor cores idle:
+// 2.21 against 2.01 ms).  Warp w owns rows 64 (w / 4) ... and columns 32 (w
+// % 4) ... of the tile: 4 x 4 accumulator tiles of 16 x 8, A fragments by
+// ldmatrix from [m][k], B fragments read from [k][n] as B lies.  Each step's
+// products go to a fresh accumulator (chains of 3 BKT / 8 = 12 products),
+// added to the running one on the CUDA cores in K order, so every output
+// element is one fixed sum whatever the atom.
+__global__ void __launch_bounds__(NTHREADS, 1) matmul_tf32_kernel(Args p) {
+  int row0, col0;
+  if (!cta_origin<TM, TN>(p, (int)blockIdx.x, row0, col0)) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const auto* A = static_cast<const float*>(p.a);
+  const auto* B = static_cast<const float*>(p.b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int nk = (p.K + BKT - 1) / BKT;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  auto load = [&](int kt) {
+    float* s = ring + (kt % STAGES) * STAGE_T;
+    land<TM, BKT, PAT>(s + PLANE_A, A, p.lda, row0, kt * BKT, p.M, p.K);
+    land<BKT, TN, PBT>(s + 2 * PLANE_A + PLANE_B, B, p.ldb, kt * BKT, col0,
+                       p.K, p.N);
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 2>();   // this thread's chunks of step 0 ...
+  if (nk > 0) {
+#pragma unroll
+    for (int u = 0; u < CA + CB; ++u) split_chunk(ring, u);   // ... split
+  }
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const float* s = ring + (kt % STAGES) * STAGE_T;
+    float* next = ring + ((kt + 1) % STAGES) * STAGE_T;
+    // step kt+2 lands (zeros past K) in the slot step kt-1 left; step kt+1
+    // has landed and is split a chunk at a time between step kt's products
+    load(kt + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 2>();
+
+    const float* ah_s = s + wm * PAT;
+    const float* al_s = ah_s + PLANE_A;
+    const float* bh_s = s + 2 * PLANE_A + wn;
+    const float* bl_s = bh_s + PLANE_B;
+    float x[4][4][4];
+#pragma unroll
+    for (int kk = 0; kk < BKT; kk += 8) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        frag_b_kn<PBT>(bh[j], bh_s + kk * PBT, j * 8, g, t);
+        frag_b_kn<PBT>(bl[j], bl_s + kk * PBT, j * 8, g, t);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned ah[4], al[4];
+        frag_a_ldsm<PAT>(ah, ah_s + i * 16 * PAT, kk, lane);
+        frag_a_ldsm<PAT>(al, al_s + i * 16 * PAT, kk, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (kk == 0)
+            mma3_first(x[i][j], ah, al, bh[j], bl[j]);
+          else
+            mma3(x[i][j], ah, al, bh[j], bl[j]);
+        }
+      }
+      constexpr int PER = (CA + CB) / (BKT / 8);   // chunks a k-step
+#pragma unroll
+      for (int v = 0; v < PER; ++v) split_chunk(next, kk / 8 * PER + v);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += x[i][j][c];
+    __syncthreads();   // step kt+1 is split for every thread; kt is read
+  }
+  cp_async_wait<0>();   // no copy (of a step past K) outlives the CTA
+
+  auto* C = static_cast<float*>(p.c);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2<true>(C, p.ldc, row0 + wm + i * 16 + g + 8 * h,
+                     col0 + wn + j * 8 + 2 * t, p.M, p.N, acc[i][j][2 * h],
+                     acc[i][j][2 * h + 1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -501,12 +662,12 @@ using Kernel = void (*)(Args);
 // memory
 bool pick(int dtype, int vec, Kernel& k, int& smem) {
   if (dtype == 0) {
-    k = vec ? matmul_f32_kernel<true> : matmul_f32_kernel<false>;
-    smem = SMEM32;
+    k = vec ? matmul_tf32_kernel : matmul_f32_kernel;
+    smem = vec ? SMEM_T : SMEM32;
     return true;
   }
   if (dtype == 1) {   // rows TMA cannot address, or K = 0
-    k = matmul_bf16_kernel<false>;
+    k = matmul_bf16_kernel;
     smem = SMEM16;
     return true;
   }

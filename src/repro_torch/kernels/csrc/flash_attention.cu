@@ -38,12 +38,18 @@
 //     one's softmax overlaps the other's products.  Within an atom, CTA x
 //     runs tile start + num_tiles - 1 - x: a head's longest causal tiles
 //     start first;
-//   * float32 inputs keep full f32 products on the CUDA cores (wgmma has no
-//     f32 mode): the Q tile (pre-scaled) and each K and V block of 32 keys
-//     are staged in shared memory, scores and the accumulator live in
-//     registers, P goes through shared memory once for the second product;
-//     75 KB a block, two blocks an SM; shared rows are padded so the 16-byte
-//     reads of both products are free of bank conflicts;
+//   * float32 inputs take both products in split TF32 on the tensor cores
+//     (hi = tf32(x), lo = x - hi truncated; three mma.sync m16n8k8 a product:
+//     wgmma takes TF32 only K-major, and V would need a transposed split
+//     copy).  128 threads, warp w owning 16 of the tile's rows; Q pre-scaled
+//     and resident as loaded, split in registers as its fragments load; K
+//     and V blocks of 16 keys land by cp.async in a ring of two and are split
+//     once into hi and lo planes; S in four short chains over D (two at 256),
+//     P from registers as the A fragment of P V, each block's P V into fresh
+//     accumulators added on the CUDA cores (the tensor cores round toward
+//     zero).  101 KB at head_dim 128, two CTAs an SM; an atom of whole heads
+//     runs its q blocks from the last, every head's in turn, so the longest
+//     causal tiles start first across heads;
 //   * a sliding window (window > 0, the reference model's
 //     `blocked_attention(window=)`, which the TPU kernel lacks) masks kpos <=
 //     qpos - window as well, and the KV loop starts at the block of the
@@ -58,8 +64,10 @@
 // issuing S of block j+1 before P V of block j, as FlashAttention-3 does,
 // measured slower here); BK = 64 keeps two CTAs an SM but halves the work a barrier round
 // trip carries; the output is stored from registers as bf16 pairs, half of
-// each 32-byte sector.  The f32 path is limited by its shared-memory reads,
-// well below the 67 TFLOP/s f32 peak of an H100 SXM.
+// each 32-byte sector.  The f32 path (PERF.md §6: about half its f32 bound
+// and a fifth of its TF32 floor at llama3-8b's 1000-token prefill) has 8
+// warps an SM, each splitting Q's fragments again for every block of 16
+// keys and waiting at a barrier per block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,18 +76,7 @@
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int NTHREADS = 256;
 constexpr int BQ = 64;    // query rows of a tile
-constexpr int BK = 32;    // keys of a KV block
-constexpr int PP = BK + 4;  // padded row of the P tile
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
 
 struct Strides {
   long long q_b, q_s, q_h;
@@ -88,183 +85,275 @@ struct Strides {
   long long o_b, o_s, o_h;
 };
 
+// ---------------------------------------------------------------------------
+// float32: both products in split TF32 on the tensor cores (mma.sync
+// m16n8k8).  128 threads: warp w owns the tile's query rows [16w, 16w+16).
+// Q is resident in shared memory as loaded (pre-scaled by sm_scale log2 e)
+// and split in registers as its fragments load; K and V blocks of FBK keys
+// land by cp.async in a ring of two and are split once, as they land, into
+// hi and lo planes [key][d] of P words a row.  S = Q K^T is taken in KC
+// short chains over D; P never leaves registers: each 8-key column tile of
+// S is an A fragment of O += P V (V read [key][d] as it lies).  Each block's
+// P V goes to fresh accumulators (chains of 3 FBK / 8 products), added to
+// the running output on the CUDA cores after the rescale.
+// ---------------------------------------------------------------------------
+
+constexpr int F_THREADS = 128;
+constexpr int FBK = 16;    // keys of a KV block
+
 template <int D>
-constexpr int smem_bytes() {
-  return (int)sizeof(float) * ((BQ + 2 * BK) * (D + 4) + BQ * PP);
+struct F32Tile {
+  static constexpr int P = D + 4;          // floats a row: 4 mod 32
+  static constexpr int Q = BQ * P;         // the Q tile, as loaded
+  static constexpr int PLANE = FBK * P;    // one plane of a block
+  static constexpr int STAGE = 4 * PLANE;  // K hi, K lo, V hi, V lo
+  static constexpr int BYTES = 4 * (Q + 2 * STAGE);
+  // a score's chains over D: 4 of D / 32 k-steps; 2 at head_dim 256, whose
+  // output accumulators leave no registers for more
+  static constexpr int KC = D == 256 ? 2 : 4;
+};
+// CTAs an SM the f32 kernel is built for: two where their shared memory
+// fits an SM's 228 KB (1 KB of it reserved a CTA), else one
+template <int D>
+constexpr int f32_ctas() {
+  return 2 * (F32Tile<D>::BYTES + 1024) <= 233472 ? 2 : 1;
+}
+static_assert(F32Tile<256>::BYTES <= 232448, "227 KB of shared memory a block");
+
+// the block at stage `st` of keys [k0, k0 + FBK): K, V rows land raw in
+// their lo planes (zero past Sk)
+template <int D>
+__device__ __forceinline__ void land_kv(float* st, const float* kb,
+                                        const float* vb, long long ks,
+                                        long long vs, int k0, int Sk) {
+  using F = F32Tile<D>;
+  tf32_load_rows<D, F::P, FBK, F_THREADS>(st + F::PLANE, kb, ks, k0, Sk);
+  tf32_load_rows<D, F::P, FBK, F_THREADS>(st + 3 * F::PLANE, vb, vs, k0, Sk);
 }
 
-// rows [row0, row0+rows) of a [*, D] operand -> f32 tile in shared memory,
-// zero beyond `limit`, scaled by `scale`
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src,
-                                           long long row_stride, int row0,
-                                           int rows, int limit, float scale) {
-  constexpr int DP = D + 4;
-  for (int idx = threadIdx.x; idx < rows * (D / 4); idx += NTHREADS) {
-    const int row = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < limit) {
-      x = load4(src + (long long)(row0 + row) * row_stride + c);
-      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + row * DP + c) = x;
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, f32_ctas<D>())
+flash_attn_tf32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int start, int num_tiles,
+                       int n_qblocks, int Hq, int G, int Sq, int Sk,
+                       int causal, int window, Strides st, float scale_log2e) {
+  using F = F32Tile<D>;
+  constexpr int P = F::P, KC = F::KC;
+  constexpr int NS = FBK / 8;     // 8-key column tiles of S
+  constexpr int DT = D / 8;       // 8-column tiles of the output; k-steps
+  // fragments by ldmatrix: Q's raw, both key tiles' of K at once (at head
+  // dim 256 the extra registers spill)
+  constexpr bool LDSM = D <= 128;
+  extern __shared__ __align__(16) float fsm[];
+  float* sQ = fsm;                // [BQ][P]
+  float* ring = sQ + F::Q;        // [stage]: K hi, K lo, V hi, V lo
+
+  // longest causal tiles first: an atom of whole heads runs its q blocks
+  // from the last, every head's in turn; any other atom from its end
+  int bh, qi;
+  if (start % n_qblocks == 0 && num_tiles % n_qblocks == 0) {
+    const int heads = num_tiles / n_qblocks;
+    bh = start / n_qblocks + (int)blockIdx.x % heads;
+    qi = n_qblocks - 1 - (int)blockIdx.x / heads;
+  } else {
+    const int tile = start + num_tiles - 1 - (int)blockIdx.x;
+    bh = tile / n_qblocks;
+    qi = tile % n_qblocks;
   }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o,
-                  float* __restrict__ lse, int start, int n_qblocks, int Hq,
-                  int G, int Sq, int Sk, int causal, int window, Strides st,
-                  float sm_scale) {
-  constexpr int DP = D + 4;
-  constexpr int NG = D / 64;   // 64-wide column groups of the output
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;               // [BQ][DP]
-  float* sK = sQ + BQ * DP;       // [BK][DP]
-  float* sV = sK + BK * DP;       // [BK][DP]
-  float* sP = sV + BK * DP;       // [BQ][PP]
-
-  const int t = start + blockIdx.x;
-  const int bh = t / n_qblocks, qi = t % n_qblocks;
   const int b = bh / Hq, h = bh % Hq, hk = h / G;
   const int q0 = qi * BQ;
   const int off = Sk - Sq;        // qpos = off + query row
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + hk * st.k_h;
-  const T* vb = v + b * st.v_b + hk * st.v_h;
-
-  stage_tile<T, D>(sQ, qb, st.q_s, q0, BQ, Sq, sm_scale);
-
-  // thread (ty, tx) owns score rows ty+16i (i<4), score columns tx+16j (j<2)
-  // and output columns g*64 + tx*4 .. +3 (g<NG)
-  float m[4], l[4], acc[4][NG][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][g][c] = 0.f;
-    }
-  }
-
-  // one past the last key any row of this tile may see, and the first key
-  // the window lets its first row see
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, off + q_last + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int nblocks = k_end > 0 ? (k_end + FBK - 1) / FBK : 0;
+  // the first block the window lets the tile's first row see
+  const int blk0 = window > 0 ? max(0, off + q0 - window + 1) / FBK : 0;
+  const float* kb = k + b * st.k_b + hk * st.k_h;
+  const float* vb = v + b * st.v_b + hk * st.v_h;
 
-  for (int k0 = k_lo / BK * BK; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous block's sK, sV, sP are no longer read
-    stage_tile<T, D>(sK, kb, st.k_s, k0, BK, Sk, 1.f);
-    stage_tile<T, D>(sV, vb, st.v_s, k0, BK, Sk, 1.f);
-    __syncthreads();
+  if (blk0 < nblocks) {   // block blk0's K and V, then Q (scaled) meanwhile
+    land_kv<D>(ring, kb, vb, st.k_s, st.v_s, blk0 * FBK, Sk);
+    cp_async_commit();
+  }
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  for (int i = threadIdx.x; i < BQ * (D / 4); i += F_THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) {
+      x = *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * st.q_s +
+                                           c);
+      x.x *= scale_log2e; x.y *= scale_log2e;
+      x.z *= scale_log2e; x.w *= scale_log2e;
+    }
+    *reinterpret_cast<float4*>(sQ + r * P + c) = x;
+  }
 
-    float s[4][2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;   // row within 8, column pair
+  const int row_lo = off + q0 + warp * 16;  // qpos of the warp's first row
+  const float* qw = sQ + warp * 16 * P;
+  // rows g and g+8 of the warp's slice; scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) { s[i][0] = 0.f; s[i][1] = 0.f; }
+  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int blk = blk0; blk < nblocks; ++blk) {
+    const int k0 = blk * FBK;
+    float* ks = ring + ((blk - blk0) & 1) * F::STAGE;
+    const float* vs = ks + 2 * F::PLANE;
+    cp_async_wait<0>();   // this thread's chunks of block blk have landed
+    tf32_split_rows<FBK, D, P, F_THREADS>(ks);
+    tf32_split_rows<FBK, D, P, F_THREADS>(ks + 2 * F::PLANE);
+    __syncthreads();   // block blk is split (and Q stored); blk-1 is not read
+    if (blk + 1 < nblocks) {
+      land_kv<D>(ring + ((blk + 1 - blk0) & 1) * F::STAGE, kb, vb, st.k_s,
+                 st.v_s, k0 + FBK, Sk);
+      cp_async_commit();
+    }
+
+    // S = Q K^T for the warp's 16 rows x FBK keys, in KC chains over D
+    float c[KC][NS][4];
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[2];
+    for (int j1 = 0; j1 < DT; j1 += KC)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * DP + d);
+      for (int u = 0; u < KC; ++u) {
+        const int j = j1 + u;     // k-step: columns 8j ... 8j + 7 of Q, K
+        unsigned ah[4], al[4];
+        unsigned kh[2 * NS], kl[2 * NS];   // (b0, b1) of each key tile
+        if constexpr (LDSM) {
+          static_assert(NS == 2, "one ldmatrix covers two key tiles");
+          unsigned r[4];
+          frag_a_ldsm<P>(r, qw, 8 * j, lane);
+          const float xq[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
+                               __uint_as_float(r[2]), __uint_as_float(r[3])};
+          split4(ah, al, xq);
+          // lanes 8m ... 8m+7 address matrix m: keys 8 (m / 2) ..., d 8j +
+          // 4 (m % 2) ...: b0, b1 of key tile 0, then of key tile 1
+          const float* kr = ks + ((lane & 7) + ((lane >> 4) << 3)) * P +
+                            8 * j + ((lane >> 3) & 1) * 4;
+          ldmatrix_x4(kh, kr);
+          ldmatrix_x4(kl, kr + F::PLANE);
+        } else {
+          frag_a<P>(ah, al, qw, 8 * j, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * DP + d);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          s[i][j] += qv.x * kv[j].x + qv.y * kv[j].y + qv.z * kv[j].z +
-                     qv.w * kv[j].w;
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = off + q0 + ty + 16 * i;
-      bool valid[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        valid[j] = kpos < Sk && (!causal || kpos <= qpos) &&
-                   (window <= 0 || kpos > qpos - window);
-        if (valid[j]) mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        sP[(ty + 16 * i) * PP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, w);
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][g][c] *= corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float p4[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pv =
-            *reinterpret_cast<const float4*>(sP + (ty + 16 * i) * PP + kk);
-        p4[i][0] = pv.x; p4[i][1] = pv.y; p4[i][2] = pv.z; p4[i][3] = pv.w;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              sV + (kk + c) * DP + g * 64 + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][g][0] += p4[i][c] * vv.x;
-            acc[i][g][1] += p4[i][c] * vv.y;
-            acc[i][g][2] += p4[i][c] * vv.z;
-            acc[i][g][3] += p4[i][c] * vv.w;
+          for (int n = 0; n < NS; ++n) {
+            frag_b_nk<P>(*reinterpret_cast<unsigned(*)[2]>(kh + 2 * n),
+                         ks + n * 8 * P, 8 * j, g, t);
+            frag_b_nk<P>(*reinterpret_cast<unsigned(*)[2]>(kl + 2 * n),
+                         ks + F::PLANE + n * 8 * P, 8 * j, g, t);
           }
         }
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const unsigned bh[2] = {kh[2 * n], kh[2 * n + 1]};
+          const unsigned bl[2] = {kl[2 * n], kl[2 * n + 1]};
+          if (j1 == 0)
+            mma3_first(c[u][n], ah, al, bh, bl);
+          else
+            mma3(c[u][n], ah, al, bh, bl);
+        }
       }
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = c[0][n][e];
+#pragma unroll
+        for (int u = 1; u < KC; ++u) s[n][e] += c[u][n][e];
+      }
+
+    // mask (only where the block touches an edge), online softmax
+    const bool edge = (k0 + FBK > Sk) || (causal && k0 + FBK - 1 > row_lo) ||
+                      (window > 0 && k0 < row_lo + 16 - window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row_lo + g + 8 * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[n][2 * r + e];
+          if (edge) {
+            const int kpos = k0 + n * 8 + 2 * t + e;
+            if (kpos >= Sk || (causal && kpos > qpos) ||
+                (window > 0 && kpos <= qpos - window))
+              x = -INFINITY;
+          }
+          s[n][2 * r + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      // a row with no unmasked key so far: exponents relative to 0, all p = 0
+      const float m_ref = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = exp2f(m[r] - m_ref);
+      float psum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[n][2 * r + e] - m_ref);
+          s[n][2 * r + e] = p;
+          psum += p;
+        }
+      l[r] = l[r] * corr + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[dt][2 * r] *= corr;
+        acc[dt][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V: each 8-key column tile of P is an A fragment; fresh
+    // accumulators for each 8 output columns, added on the CUDA cores
+    unsigned ph[NS][4], pl[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) frag_of_acc(ph[n], pl[n], s[n]);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      float x[4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        unsigned bh[2], bl[2];
+        frag_b_kn_acc<P>(bh, vs + n * 8 * P, dt * 8, g, t);
+        frag_b_kn_acc<P>(bl, vs + F::PLANE + n * 8 * P, dt * 8, g, t);
+        if (n == 0)
+          mma3_first(x, ph[n], pl[n], bh, bl);
+        else
+          mma3(x, ph[n], pl[n], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] += x[e];
     }
   }
 
-  T* ob = o + b * st.o_b + h * st.o_h;
+  // normalise and store the rows below Sq, f32 pairs
+  float* ob = o + b * st.o_b + h * st.o_h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qrow = q0 + ty + 16 * i;
-    if (qrow < Sq) {
-      // natural-base log-sum-exp of the row's scaled scores (+inf: no key)
-      if (lse != nullptr && tx == 0)
-        lse[(long long)bh * Sq + qrow] =
-            l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
-      const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int qrow = q0 + warp * 16 + g + 8 * r;
+    if (qrow >= Sq) continue;
+    // natural-base log-sum-exp of the row's scaled scores (m is in log2
+    // units of them); +inf for a row that saw no key
+    if (lse != nullptr && t == 0)
+      lse[(long long)bh * Sq + qrow] =
+          sum == 0.f ? INFINITY : (m[r] + log2f(sum)) * 0.6931471805599453f;
+    const float inv = 1.f / (sum == 0.f ? 1.f : sum);
+    float* orow = ob + (long long)qrow * st.o_s + 2 * t;
 #pragma unroll
-      for (int g = 0; g < NG; ++g)
-        store4(ob + (long long)qrow * st.o_s + g * 64 + tx * 4,
-               make_float4(acc[i][g][0] * inv, acc[i][g][1] * inv,
-                           acc[i][g][2] * inv, acc[i][g][3] * inv));
-    }
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(orow + dt * 8) =
+          make_float2(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
   }
 }
 
@@ -313,7 +402,6 @@ __device__ __forceinline__ void pv_step(float (&acc)[D / 2],
 template <int D>
 constexpr int tc_ctas() { return D == 256 ? 1 : 2; }
 static_assert(TcTile<256>::SMEM <= 232448, "227 KB of shared memory a block");
-static_assert(smem_bytes<256>() <= 232448, "227 KB of shared memory a block");
 
 // WIN: a sliding window is applied (window > 0); the kernel without it is
 // compiled apart, so the window's tests cost the common case nothing
@@ -552,20 +640,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int start, int num_tiles, int n_qblocks, int Hq, int G, int Sq,
-           int Sk, int causal, int window, const Strides& st,
-           cudaStream_t stream) {
-  auto kernel = flash_attn_kernel<T, D>;
-  constexpr int smem = smem_bytes<D>();   // above 48 KB: dynamic, opted in
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int start, int num_tiles, int n_qblocks, int Hq,
+               int G, int Sq, int Sk, int causal, int window,
+               const Strides& st, cudaStream_t stream) {
+  auto kernel = flash_attn_tf32_kernel<D>;
+  constexpr int smem = F32Tile<D>::BYTES;   // above 48 KB: dynamic, opted in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<num_tiles, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, start, n_qblocks,
-      Hq, G, Sq, Sk, causal, window, st, 1.0f / sqrtf((float)D));
+  kernel<<<num_tiles, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, start,
+      num_tiles, n_qblocks, Hq, G, Sq, Sk, causal, window, st,
+      1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -596,16 +685,16 @@ extern "C" int flash_attention_ctas_per_sm(int D, int dtype) {
       smem = TcTile<256>::SMEM;
     }
   } else if (dtype == 0) {
-    threads = NTHREADS;
+    threads = F_THREADS;
     if (D == 64) {
-      k = (const void*)flash_attn_kernel<float, 64>;
-      smem = smem_bytes<64>();
+      k = (const void*)flash_attn_tf32_kernel<64>;
+      smem = F32Tile<64>::BYTES;
     } else if (D == 128) {
-      k = (const void*)flash_attn_kernel<float, 128>;
-      smem = smem_bytes<128>();
+      k = (const void*)flash_attn_tf32_kernel<128>;
+      smem = F32Tile<128>::BYTES;
     } else if (D == 256) {
-      k = (const void*)flash_attn_kernel<float, 256>;
-      smem = smem_bytes<256>();
+      k = (const void*)flash_attn_tf32_kernel<256>;
+      smem = F32Tile<256>::BYTES;
     }
   }
   if (k == nullptr) return -1;
@@ -641,9 +730,9 @@ extern "C" int flash_attention_atom(
 #define FLASH_ARGS \
   q, k, v, o, static_cast<float*>(lse), start, num_tiles, n_qblocks
 #define FLASH_TAIL G, Sq, Sk, causal, window, st, s
-  if (dtype == 0 && D == 64) return launch<float, 64>(FLASH_ARGS, Hq, FLASH_TAIL);
-  if (dtype == 0 && D == 128) return launch<float, 128>(FLASH_ARGS, Hq, FLASH_TAIL);
-  if (dtype == 0 && D == 256) return launch<float, 256>(FLASH_ARGS, Hq, FLASH_TAIL);
+  if (dtype == 0 && D == 64) return launch_f32<64>(FLASH_ARGS, Hq, FLASH_TAIL);
+  if (dtype == 0 && D == 128) return launch_f32<128>(FLASH_ARGS, Hq, FLASH_TAIL);
+  if (dtype == 0 && D == 256) return launch_f32<256>(FLASH_ARGS, Hq, FLASH_TAIL);
   if (dtype == 1 && D == 64) return launch_bf16<64>(FLASH_ARGS, B, Hq, FLASH_TAIL);
   if (dtype == 1 && D == 128) return launch_bf16<128>(FLASH_ARGS, B, Hq, FLASH_TAIL);
   if (dtype == 1 && D == 256) return launch_bf16<256>(FLASH_ARGS, B, Hq, FLASH_TAIL);

@@ -84,9 +84,9 @@
 //     between the two warpgroups (the producer never waits on them), so the
 //     pair still issues seven products;
 //   * float32 at head_dim 64, 128 and 256 (`bwd_tf32_kernel`): split TF32 on
-//     the tensor cores.  Each operand x is hi = tf32(x) (cvt.rna) and lo =
-//     tf32(x - hi), and each product is lo_a hi_b + hi_a lo_b + hi_a hi_b in
-//     f32: about 21 bits of each product where one TF32 product keeps 11
+//     the tensor cores.  Each operand x is hi = tf32(x) and lo = x - hi
+//     truncated to TF32, and each product is lo_a hi_b + hi_a lo_b + hi_a hi_b
+//     in f32: about 21 bits of each product where one TF32 product keeps 11
 //     (the f32 limits, 1e-5 of a gradient's largest value, need the split;
 //     ref.tf32_split_product is its plain emulation).  Bound: 10 D flops a
 //     pair at the CUDA cores' 67 TFLOP/s (1.28 ms at olmo-1b's shape, B=2,
@@ -952,10 +952,10 @@ __device__ __forceinline__ const T* head_base(const void* p, long long sb,
 }
 
 // A streamed block of R rows is two planes [R][P] of f32 words: hi =
-// tf32(x), then lo = tf32(x - hi), split once as it lands.  A resident tile
-// is one plane as loaded, split in registers as its fragments load: its
+// tf32(x), then lo = x - hi truncated, split once as it lands.  A resident
+// tile is one plane as loaded, split in registers as its fragments load: its
 // fragments are read again for every streamed block, and shared-memory
-// reads cost more here than the three ALU operations of a split (hi and lo
+// reads cost more here than the four ALU operations of a split (hi and lo
 // planes of the resident tile, 64-row tiles and 8-row parts of each block:
 // 3.92 ms against 3.05 at olmo-1b's shape in one call, NVIDIA H100 80GB
 // HBM3, 700 W).  Every warp owns 16 rows of the tile (a row group); at
@@ -994,13 +994,7 @@ template <int D, int R, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int row0,
                                           int limit) {
-  constexpr int P = F32<D>::P, CH = D / 4;
-  for (int i = threadIdx.x; i < R * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const bool ok = row0 + r < limit;
-    cp_async_16(dst + r * P + c,
-                ok ? src + (long long)(row0 + r) * stride + c : src, ok);
-  }
+  tf32_load_rows<D, F32<D>::P, R, NT>(dst, src, stride, row0, limit);
 }
 
 // a streamed operand's R rows -> the lo plane of its tile at `t`
@@ -1014,87 +1008,14 @@ __device__ __forceinline__ void load_block(float* t, const float* src,
 // this thread's landed chunks of the tile at `t`: x -> hi, lo in place
 template <int D, int R, int NT>
 __device__ __forceinline__ void split_rows(float* t) {
-  constexpr int P = F32<D>::P, CH = D / 4;
-  for (int i = threadIdx.x; i < R * CH; i += NT) {
-    const int o = (i / CH) * P + (i % CH) * 4;
-    float4 x = *reinterpret_cast<const float4*>(t + R * P + o);
-    float4 h, l;
-    h.x = __uint_as_float(tf32_rna(x.x));
-    h.y = __uint_as_float(tf32_rna(x.y));
-    h.z = __uint_as_float(tf32_rna(x.z));
-    h.w = __uint_as_float(tf32_rna(x.w));
-    l.x = __uint_as_float(tf32_rna(x.x - h.x));
-    l.y = __uint_as_float(tf32_rna(x.y - h.y));
-    l.z = __uint_as_float(tf32_rna(x.z - h.z));
-    l.w = __uint_as_float(tf32_rna(x.w - h.w));
-    *reinterpret_cast<float4*>(t + o) = h;
-    *reinterpret_cast<float4*>(t + R * P + o) = l;
-  }
+  tf32_split_rows<R, D, F32<D>::P, NT>(t);
 }
 
-// four f32 values as split TF32
-__device__ __forceinline__ void split4(unsigned (&hi)[4], unsigned (&lo)[4],
-                                       const float (&x)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    hi[j] = tf32_rna(x[j]);
-    lo[j] = tf32_rna(x[j] - __uint_as_float(hi[j]));
-  }
-}
-
-// A fragment (16 x 8) of a raw plane stored [row][k] from row 0 of `p`,
-// columns k0 ... k0 + 7 (pitch P = 4 mod 32: no bank conflicts), split
-template <int P>
-__device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
-                                       const float* p, int k0, int g, int t) {
-  const float x[4] = {p[g * P + k0 + t], p[(g + 8) * P + k0 + t],
-                      p[g * P + k0 + t + 4], p[(g + 8) * P + k0 + t + 4]};
-  split4(hi, lo, x);
-}
-
-// B fragment (8 x 8) of a plane stored [n][k]: rows n = 0..7 of `p`,
-// columns k0 ... k0 + 7
-template <int P>
-__device__ __forceinline__ void frag_b_nk(unsigned (&r)[2], const float* p,
-                                          int k0, int g, int t) {
-  r[0] = __float_as_uint(p[g * P + k0 + t]);
-  r[1] = __float_as_uint(p[g * P + k0 + t + 4]);
-}
-
-// B fragment of a plane stored [k][n]: rows k = 0..7 of `p`, columns n0 ...
-// n0 + 7, k taken in the order (0, 2, 4, 6, 1, 3, 5, 7): the order in which
-// `frag_of_acc` reads an accumulator's columns
-template <int P>
-__device__ __forceinline__ void frag_b_kn(unsigned (&r)[2], const float* p,
-                                          int n0, int g, int t) {
-  r[0] = __float_as_uint(p[2 * t * P + n0 + g]);
-  r[1] = __float_as_uint(p[(2 * t + 1) * P + n0 + g]);
-}
-
-// an accumulator tile (16 x 8) as an A fragment over its 8 columns, split
-__device__ __forceinline__ void frag_of_acc(unsigned (&hi)[4],
-                                            unsigned (&lo)[4],
-                                            const float (&c)[4]) {
-  const float x[4] = {c[0], c[2], c[1], c[3]};
-  split4(hi, lo, x);
-}
-
-// c += a b in split TF32: lo_a hi_b + hi_a lo_b + hi_a hi_b
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4],
-                                     const unsigned (&bh)[2],
-                                     const unsigned (&bl)[2]) {
-  mma_tf32(c, al, bh[0], bh[1]);
-  mma_tf32(c, ah, bl[0], bl[1]);
-  mma_tf32(c, ah, bh[0], bh[1]);
-}
-
-// The tensor cores add each product into its accumulator rounding toward
-// zero, so a long chain of additions into one accumulator drifts (1-2e-5 of
-// a gradient measured with one chain).  Chains are kept short: a score's D
-// columns go to KC accumulators summed in f32 at the end, and each streamed
-// block's share of an output goes to a fresh accumulator added to the
-// running one on the CUDA cores, rounding to nearest.
+// The split's fragment loaders and `mma3` are in tensor_core.cuh.  Chains
+// are kept short there (the tensor cores round each addition toward zero):
+// a score's D columns go to KC accumulators summed in f32 at the end, and
+// each streamed block's share of an output goes to a fresh accumulator
+// added to the running one on the CUDA cores, rounding to nearest.
 
 // s0 = rows of the raw resident plane a0 times rows of the streamed planes
 // at b0 (hi; lo BR rows on), and s1 likewise of a1 and b1: two scores [16 x
@@ -1174,8 +1095,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[NO][4],
       for (int u = 0; u < NA; ++u) {
         const float* p = u == 0 ? b : b1;
         unsigned bh[2], bl[2];
-        frag_b_kn<P>(bh, p + n * 8 * P, c0 + m * 8, g, t);
-        frag_b_kn<P>(bl, p + (BR + n * 8) * P, c0 + m * 8, g, t);
+        frag_b_kn_acc<P>(bh, p + n * 8 * P, c0 + m * 8, g, t);
+        frag_b_kn_acc<P>(bl, p + (BR + n * 8) * P, c0 + m * 8, g, t);
         mma3(x[u], ah[u][n], al[u][n], bh, bl);
       }
 #pragma unroll

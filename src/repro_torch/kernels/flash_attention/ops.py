@@ -40,8 +40,10 @@ launches = 0                      # forward kernel launches of this module
 bwd_launches = 0                  # backward atom kernel launches
 delta_launches = 0                # backward delta-pass launches
 # Query rows of a tile: one 64-row warpgroup multiply (wgmma) on the bf16
-# path.  Two thread blocks fit one SM on both paths up to head_dim 128 (bf16
-# 83 KB of Q and a 2-stage K/V ring; f32 75 KB of staging), one at 256.
+# path, four warps of 16 rows on the f32 (split TF32) path.  Two thread
+# blocks fit one SM on both paths up to head_dim 128 (bf16 83 KB of Q and a
+# 2-stage K/V ring; f32 101 KB of Q and a 2-stage ring of split K/V), one
+# at 256.
 BLOCK_Q = 64
 # Keys of a KV block that a bf16 tile visits (``TBK`` of the .cu's wgmma
 # path, exported and checked at load); ``core/llm_costs.py`` pads to it.

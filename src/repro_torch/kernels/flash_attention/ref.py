@@ -20,6 +20,9 @@ from __future__ import annotations
 
 import torch
 
+# the f32 backward's (and forward's) split-TF32 emulation, importable here
+# as before it moved to the module the atom matmul's ref shares
+from repro_torch.kernels.tf32 import tf32_round, tf32_split_product  # noqa: F401
 
 def _visible(qpos, kpos, *, causal: bool, window: int):
     """[Sq, Sk] bool: which keys (at ``kpos``) each query row (at ``qpos``
@@ -137,24 +140,6 @@ def bwd_tile(t: int, q, k, block_q: int = 128,
     kj, bhk = divmod(t - n_dq, B * Hk)
     c0 = kj * block_k
     return ("dkv", bhk // Hk, bhk % Hk, c0, min(Sk, c0 + block_k))
-
-
-def tf32_round(x):
-    """``x`` (f32) rounded to TF32, 10 mantissa bits, to nearest with ties
-    away from zero, as ``cvt.rna.tf32.f32`` does: the f32 bit pattern plus
-    half a TF32 step, its low 13 bits cleared."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split_product(a, b):
-    """``a @ b`` as the float32 backward kernel takes each product, in split
-    TF32: each operand is hi = tf32(x) and lo = tf32(x - hi), and the product
-    is lo_a hi_b + hi_a lo_b + hi_a hi_b summed in f32 (lo_a lo_b, ~2^-22 of
-    it, is dropped).  A plain emulation for the tests; no path calls it."""
-    ah, bh = tf32_round(a), tf32_round(b)
-    al, bl = tf32_round(a - ah), tf32_round(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def attention_delta_ref(o, do):

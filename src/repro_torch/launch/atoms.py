@@ -59,14 +59,19 @@ N_ATOMS = (1, 2, 4, 8, 16, 32)
 QUICK_N_ATOMS = (1, 4, 32)
 PREFILL_TOKENS = 1000
 ITERS = 10                        # timed calls of each schedule (median)
-# one atom against the plain version on the same inputs.  Matmul: max abs
-# error over the largest |output|; both sides sum exact products in f32 and
-# differ only in order (float32: ~170 f32 steps of the largest output, far
-# above the order's effect for K up to 14336; bfloat16: both round the f32
-# sum once, and a flipped rounding is one bf16 step, at most 2^-7 of the
-# largest output).  Flash attention: max abs error; the bf16 kernel also
-# rounds P to bf16 for the tensor-core product, one bf16 step of outputs
-# between 2 and 4.
+# one atom against the plain version on the same inputs.  Matmul: max abs error
+# over the largest |output|.  float32: the kernel takes each product in split
+# TF32 (hi = tf32(x), lo = x - hi truncated to TF32; lo_a hi_b + hi_a lo_b +
+# hi_a hi_b), which drops lo_a lo_b and leaves each operand's split within
+# 2^-21 of it, and sums a K step's products on the tensor cores (rounding
+# toward zero, chains of 12) before adding them in f32; the plain version sums
+# exact f32 products.  Both errors are ~1e-6 of the largest output at K up to
+# 14336 (1.1e-6 at the projection shape on an H100, PERF.md §6); the limit,
+# ~170 f32 steps, sits above that and below one TF32 product (~1e-3).
+# bfloat16: both round the f32 sum once, and a flipped rounding is one bf16
+# step, at most 2^-7 of the largest output.  Flash attention: max abs error;
+# the bf16 kernel also rounds P to bf16 for the tensor-core product, one bf16
+# step of outputs between 2 and 4.
 MM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 

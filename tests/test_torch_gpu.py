@@ -37,8 +37,10 @@ pytestmark = pytest.mark.gpu
 # float32: same f32 math, other summation order.  bfloat16: one rounding of an
 # O(1) result to bf16 on each side (and of P inside the flash kernel).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# atom matmul, as max abs error over the largest |output| (``chip_smoke.py``
-# states why): f32 sums in another order; bf16 one rounding of each side.
+# atom matmul, as max abs error over the largest |output| (``launch/atoms.py``
+# states why): f32 products in split TF32 (each operand's split ~2^-22 of
+# it) summed in short chains, against exact f32 products; bf16 one rounding
+# of each side.
 MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -369,6 +371,138 @@ def test_matmul_kernel_bf16_routes(cuda, M, N, K, bm, bn, strided, wgmma):
                     block_n=bn)
     assert torch.equal(o == 7.0, r == 7.0)
     assert torch.equal(o[o != 7.0], got[o != 7.0])
+
+
+@pytest.mark.parametrize("K", [4096, 14336])
+@pytest.mark.parametrize("M,N,bm,bn,strided,split", [
+    (300, 520, 256, 256, False, True),     # split TF32, ragged M and N
+    (200, 384, 128, 256, True, True),      # column-range views
+    (257, 129, 128, 128, False, False),    # N = 129: the guarded f32 kernel
+])
+def test_matmul_kernel_f32_routes_at_long_k(cuda, K, M, N, bm, bn, strided,
+                                            split):
+    """float32 at the projections' K (4096 and 14336): split TF32 on the
+    tensor cores where every row is whole 16-byte chunks, else the guarded
+    CUDA-core kernel; values within MM_TOL of the plain version, atoms in a
+    permuted order bit-equal to one atom, one atom on a sentinel changing
+    exactly the plain atom's elements."""
+    rng = np.random.default_rng(M + N + K)
+    pad = 8 if strided else 0
+    a = _randn(rng, (M, K + 2 * pad), torch.float32, cuda)[:, pad:pad + K]
+    b = _randn(rng, (K, N + pad), torch.float32, cuda)[:, :N]
+    c = torch.empty(M, N, dtype=torch.float32, device=cuda)
+    assert matmul_ops.vec16(a, b, c) == split
+    assert matmul_ops.cta_shape(torch.float32, bn, split) == (128, 128)
+    want = matmul_ref(a, b)
+    scale = want.abs().max().item()
+    got = matmul_ops.atom_matmul(a, b, block_m=bm, block_n=bn)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= MM_TOL[torch.float32] * scale
+    ranges = schedule(tile_count(M, N, bm, bn), 3)
+    assert torch.equal(got, matmul_ops.atom_matmul(
+        a, b, n_atoms=3, block_m=bm, block_n=bn, order=(1, 2, 0)))
+    start, num = ranges[1]
+    o = torch.full_like(got, 7.0)
+    r = torch.full_like(got, 7.0)
+    matmul_ops.matmul_atom(a, b, o, start=start, num_tiles=num, block_m=bm,
+                           block_n=bn)
+    matmul_atom_ref(a, b, r, start=start, num_tiles=num, block_m=bm,
+                    block_n=bn)
+    assert torch.equal(o == 7.0, r == 7.0)
+    assert torch.equal(o[o != 7.0], got[o != 7.0])
+
+
+# flash attention's float32 forward (split TF32) against its plain version:
+# the max abs error over the largest |output| (``chip_smoke.FLASH_F32_TOL``)
+# and the lse (``chip_smoke.LSE_TOL``)
+FLASH_F32_TOL = 1e-5
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (300, 300, True, 100),     # a sliding window
+    (77, 333, True, 0),        # chunked prefill (Sq < Sk)
+    (90, 250, False, 0),       # non-causal, Sk not a multiple of 16
+    (250, 250, True, 0),       # causal self-attention, GQA
+])
+def test_flash_kernel_f32_split_tf32(cuda, D, Sq, Sk, causal, window):
+    """The f32 forward at every head dim: within 1e-5 of the largest
+    |output| and the lse within 1e-4 (+inf on the same empty rows), atoms
+    in a permuted order bit-equal to one atom, and the lse-free launch
+    bit-equal to the one that writes it."""
+    rng = np.random.default_rng(D + Sq + Sk + causal + window)
+    B, Hq, Hk = 2, 4, 2
+    q = _randn(rng, (B, Sq, Hq, D), torch.float32, cuda)
+    k = _randn(rng, (B, Sk, Hk, D), torch.float32, cuda)
+    v = _randn(rng, (B, Sk, Hk, D), torch.float32, cuda)
+    kw = dict(causal=causal, window=window)
+    got, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want, want_lse = attention_ref(q, k, v, return_lse=True, **kw)
+    assert (got - want).abs().max().item() \
+        <= FLASH_F32_TOL * want.abs().max().item()
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isinf(lse), ~fin)
+    assert (lse[fin] - want_lse[fin]).abs().max().item() <= LSE_TOL
+    assert torch.equal(got, flash_ops.flash_attention(
+        q, k, v, n_atoms=3, order=(2, 0, 1), **kw))
+    assert torch.equal(got, flash_ops.flash_attention(q, k, v, **kw))
+
+
+def _device_nan(dev):
+    """0 * inf made on the card: its NaN, 0x7fffffff, is the one whose bits
+    a bare TF32 rounding (add half a step, clear 13 bits) carries to -0."""
+    nan = torch.zeros((), device=dev) * torch.full((), float("inf"),
+                                                   device=dev)
+    assert nan.view(torch.int32).item() == 0x7FFFFFFF
+    return nan
+
+
+@pytest.mark.parametrize("operand", ["a", "b"])
+@pytest.mark.parametrize("N", [384, 129])      # split TF32; guarded kernel
+def test_matmul_kernel_f32_passes_nan(cuda, operand, N):
+    """A NaN made on the card in an f32 operand gives NaN in the same
+    elements as the plain version (its row or column) on both f32 routes;
+    the rest stay within MM_TOL."""
+    rng = np.random.default_rng(N)
+    M, K = 200, 512
+    a = _randn(rng, (M, K), torch.float32, cuda)
+    b = _randn(rng, (K, N), torch.float32, cuda)
+    if operand == "a":
+        a[37, 100] = _device_nan(cuda)
+    else:
+        b[300, 70] = _device_nan(cuda)
+    got = matmul_ops.atom_matmul(a, b, block_m=128, block_n=128)
+    torch.cuda.synchronize()
+    want = matmul_ref(a, b)
+    nan = torch.isnan(want)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    assert (got[~nan] - want[~nan]).abs().max().item() \
+        <= MM_TOL[torch.float32] * want[~nan].abs().max().item()
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_kernel_f32_passes_nan(cuda, D):
+    """A NaN made on the card in one element of q gives NaN in that query
+    row's output and lse, as in the plain version, and nowhere else; the
+    rest stay within 1e-5 of the largest |output|."""
+    rng = np.random.default_rng(D)
+    B, S, Hq, Hk = 1, 200, 4, 2
+    q = _randn(rng, (B, S, Hq, D), torch.float32, cuda)
+    k = _randn(rng, (B, S, Hk, D), torch.float32, cuda)
+    v = _randn(rng, (B, S, Hk, D), torch.float32, cuda)
+    q[0, 150, 1, 3] = _device_nan(cuda)
+    got, lse = flash_ops.flash_attention(q, k, v, causal=True,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = attention_ref(q, k, v, causal=True, return_lse=True)
+    nan = torch.isnan(want)
+    assert nan[0, 150, 1].all() and nan.sum().item() == D
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.isnan(lse), torch.isnan(want_lse))
+    assert (got[~nan] - want[~nan]).abs().max().item() \
+        <= FLASH_F32_TOL * want[~nan].abs().max().item()
 
 
 def test_matmul_wgmma_kernel_holds_one_cta_an_sm(cuda):
