@@ -579,8 +579,8 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving",
                     dtype="bfloat16"):
     """Decode attention at one of ``DECODE_SHAPES``, one atom over every
     row, L2 flushed before each launch.  bf16 (the split route) is held to
-    ``headline_limit``, which must lie below what a kernel that dropped one
-    split would read; float32 (the f32 route, no split) to ``TOL``."""
+    ``headline_limit``, float32 (the split_f32 route) to ``TOL``; each limit
+    must lie below what a kernel that dropped one split would read."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     B, Hq, Hk, D, S, lens = {**DECODE_SHAPES, **MODEL_DECODE_SHAPES}[
@@ -599,14 +599,12 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving",
         fail(f"decode_attention {dtype} at the {shape} shape: err {err} > "
              f"{limit}")
     plan = decode_plan(torch, ops, q, kc, vc)
-    dropped = None
-    if dtype == "bfloat16":
-        dropped = dropped_split_err(q, kc, vc, lens_t, plan["chunk"])
-        if not dropped > limit:
-            fail(f"decode_attention at the {shape} shape: a dropped split "
-                 f"reads {dropped}, within the limit {limit}")
-    clusters = (ops.max_active_clusters(D, plan["nsplit"])
-                if plan["route"] == "split" else None)
+    dropped = dropped_split_err(q, kc, vc, lens_t, plan["chunk"])
+    if not dropped > limit:
+        fail(f"decode_attention {dtype} at the {shape} shape: a dropped "
+             f"split reads {dropped}, within the limit {limit}")
+    clusters = (ops.max_active_clusters(D, plan["nsplit"], dt)
+                if plan["route"] != "plain" else None)
     # the kernel alone: one atom of every row into an output made once, so
     # the memset of a fresh output is not timed
     o = torch.empty_like(q)
@@ -1054,16 +1052,18 @@ def kernels_phase(torch, dev, real: bool):
         dec = [dict(B=4, Hq=32, Hk=8, D=128, S=2048, dtype="bfloat16", lens=[1, 37, 1000, 2048],
                     route="split"),
                dict(B=4, Hq=32, Hk=8, D=128, S=2048, dtype="float32", lens=[2048, 513, 0, 64],
-                    route="f32"),
+                    route="split_f32"),
                dict(B=8, Hq=32, Hk=8, D=128, S=2048, dtype="bfloat16",
                     lens=[5, 2048, 31, 32, 33, 999, 1500, 257], strided=True,
                     route="split"),
                dict(B=4, Hq=16, Hk=16, D=128, S=2048, dtype="bfloat16", lens=[100, 2000, 3, 640],
                     route="split"),
-               dict(B=2, Hq=8, Hk=2, D=64, S=300, dtype="float32", lens=[300, 17], route="f32"),
+               dict(B=2, Hq=8, Hk=2, D=64, S=300, dtype="float32", lens=[300, 17],
+                    route="split_f32"),
                dict(B=2, Hq=24, Hk=2, D=64, S=130, dtype="bfloat16", lens=[130, 64],
                     route="split", nsplit=2),
-               dict(B=3, Hq=6, Hk=2, D=128, S=96, dtype="float32", lens=[96, 1, 50], route="f32")]
+               dict(B=3, Hq=6, Hk=2, D=128, S=96, dtype="float32", lens=[96, 1, 50],
+                    route="split_f32")]
         # the split kernel at every split count (set by the key blocks of S
         # where the rows are few), lens on the split boundaries (chunk - 1,
         # chunk, chunk + 1, 0, S), two passes of 16 heads (G = 20), enough
@@ -1078,6 +1078,18 @@ def kernels_phase(torch, dev, real: bool):
                      route="split", nsplit=4),
                 dict(B=2, Hq=40, Hk=2, D=128, S=1000, dtype="bfloat16", lens=[128, 1000],
                      route="split", nsplit=8)]
+        # the f32 split kernel at every split count, the same boundaries;
+        # G = 20 takes passes of 8, 8 and 4 heads
+        dec += [dict(B=3, Hq=32, Hk=8, D=128, S=64, dtype="float32", lens=[0, 63, 64],
+                     route="split_f32", nsplit=1),
+                dict(B=4, Hq=32, Hk=8, D=128, S=150, dtype="float32", lens=[127, 128, 129, 150],
+                     route="split_f32", nsplit=2),
+                dict(B=4, Hq=8, Hk=2, D=64, S=300, dtype="float32", lens=[0, 127, 129, 300],
+                     route="split_f32", nsplit=4),
+                dict(B=2, Hq=40, Hk=2, D=128, S=1000, dtype="float32", lens=[128, 1000],
+                     route="split_f32", nsplit=8),
+                dict(B=4, Hq=16, Hk=1, D=256, S=300, dtype="float32",
+                     lens=[0, 127, 129, 300], route="split_f32", nsplit=4)]
         # head_dim 256, MQA (recurrentgemma-9b): its ring of 2048 keys full
         # and not, a split count set by a short cache, f32
         dec += [dict(B=2, Hq=16, Hk=1, D=256, S=2048, dtype="bfloat16",
@@ -1085,21 +1097,21 @@ def kernels_phase(torch, dev, real: bool):
                 dict(B=4, Hq=16, Hk=1, D=256, S=300, dtype="bfloat16",
                      lens=[0, 127, 129, 300], route="split", nsplit=4),
                 dict(B=3, Hq=16, Hk=1, D=256, S=2048, dtype="float32",
-                     lens=[2048, 1, 0], route="f32")]
+                     lens=[2048, 1, 0], route="split_f32")]
         # the grouping of llava-next-34b (G = 7: seven of 16 MMA rows in
-        # bf16; a pass of 4 heads and one of 3 in f32) and whisper-small's
+        # bf16, seven of a pass of 8 in f32) and whisper-small's
         # MHA at head_dim 64 (G = 1): the cross K/V of 1500 frames, every
         # length equal, and the self-attention cache of 448 rows
         dec += [dict(B=4, Hq=56, Hk=8, D=128, S=2048, dtype="bfloat16",
                      lens=[1, 300, 1040, 2048], route="split"),
                 dict(B=4, Hq=56, Hk=8, D=128, S=2048, dtype="float32",
-                     lens=[2048, 700, 0, 65], route="f32"),
+                     lens=[2048, 700, 0, 65], route="split_f32"),
                 dict(B=4, Hq=12, Hk=12, D=64, S=1500, dtype="bfloat16",
                      lens=[1500] * 4, route="split"),
                 dict(B=4, Hq=12, Hk=12, D=64, S=448, dtype="bfloat16",
                      lens=[33] * 4, route="split"),
                 dict(B=4, Hq=12, Hk=12, D=64, S=1500, dtype="float32",
-                     lens=[1500] * 4, route="f32")]
+                     lens=[1500] * 4, route="split_f32")]
         refused = [dict(B=3, Hq=16, Hk=4, D=128, S=500, lens=[500, 0, 257]),
                    dict(B=2, Hq=8, Hk=2, D=64, S=333, lens=[65, 333])]
         fl = [dict(B=1, Sq=37, Sk=37, Hq=32, Hk=8, D=128, dtype="bfloat16"),
@@ -1211,8 +1223,8 @@ def kernels_phase(torch, dev, real: bool):
                       "max_abs_err": err,
                       "err_limit": TOL[("decode", c["dtype"])]})
     took = {(c["took"]["route"], c["took"]["nsplit"]) for c in cases}
-    if real and not ({("split", n) for n in (1, 2, 4, 8)}
-                     | {("f32", 1)}) <= took:
+    if real and not {(r, n) for r in ("split", "split_f32")
+                     for n in (1, 2, 4, 8)} <= took:
         fail(f"decode_attention cases reached only {sorted(took)}")
     for c in refused:
         cases.append({"kernel": "decode_attention", **c, "dtype": "bfloat16",
@@ -1237,9 +1249,13 @@ def kernels_phase(torch, dev, real: bool):
                                iters=30 if real else 1, shape="whisper_cross")
     k1_llava = decode_headline(torch, dev, gen, flush,
                                iters=30 if real else 1, shape="llava")
-    # the f32 routes of K1 and K3 at the same headline shapes
+    # the f32 routes of K1 (at both of its headline shapes) and K3 at the
+    # same headline shapes
     k1_f32 = decode_headline(torch, dev, gen, flush, iters=30 if real else 1,
                              dtype="float32")
+    k1_f32_long = decode_headline(torch, dev, gen, flush,
+                                  iters=30 if real else 1,
+                                  shape="long_context", dtype="float32")
     k3_f32 = matmul_headline(torch, dev, gen, flush, iters=10 if real else 1,
                              real=real, dtype="float32")
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
@@ -1261,18 +1277,23 @@ def kernels_phase(torch, dev, real: bool):
             "matmul_tf32_kernel"]
         k2_f32["ptxas"] = build.ptxas_report("flash_attention")["kernels"][
             f"flash_attn_tf32_kernel<{k2_f32['shape']['D']}>"]
-        k1_f32["ptxas"] = {
-            k: v for k, v in build.ptxas_report("decode_attention")[
-                "kernels"].items()
-            if k.startswith(f"decode_attn_kernel<{k1_f32['shape']['D']},")}
+        for k in (k1_f32, k1_f32_long):
+            k["ptxas"] = {
+                name: v for name, v in build.ptxas_report("decode_attention")[
+                    "kernels"].items()
+                if name.startswith(f"decode_split_f32_kernel<"
+                                   f"{k['shape']['D']},")}
     # K1's f32 route takes no TF32 products (the CUDA cores)
-    k1_f32.update(route=k1_f32["took"]["route"], tf32_floor_ms=None)
+    for k in (k1_f32, k1_f32_long):
+        k.update(route=k["took"]["route"], tf32_floor_ms=None)
     emit("kernels", cases=cases, decode_attention=k1,
          decode_attention_long_context=k1_long,
          decode_attention_ring_d256=k1_ring,
          decode_attention_whisper_cross=k1_cross,
          decode_attention_llava_g7=k1_llava,
-         decode_attention_float32=k1_f32, flash_attention=k2,
+         decode_attention_float32=k1_f32,
+         decode_attention_float32_long_context=k1_f32_long,
+         flash_attention=k2,
          flash_attention_window_d256=k2_window,
          flash_attention_float32=k2_f32,
          flash_attention_whisper_encoder=k2_encoder, atom_matmul=k3,
@@ -1294,8 +1315,8 @@ def kernels_phase(torch, dev, real: bool):
                   "late reads above that limit in every whole-window row",
                   "flash whisper-encoder headline: the last, partial KV "
                   "block left out reads above that limit in every row",
-                  "decode headlines: max abs error within 2^-6 of max|output|,"
-                  " below what one dropped split reads",
+                  "decode headlines: max abs error within 2^-6 of max|output|"
+                  " (f32: 2e-5), below what one dropped split reads",
                   "flash backward: dQ, dK, dV row by row within 2^-5 of "
                   "autograd of the plain version; the forward's lse against "
                   "the plain logsumexp; atoms (n=5) in permuted order "

@@ -60,9 +60,32 @@
 // What holds it back (PERF.md): a fixed cost beyond launching at any length
 // (prologue, two cluster barriers, two merges), and, at a few dozen rows,
 // clusters of 8 that do not all fit the card at once.
-// float32 (decode_attn_kernel): full f32 products on the CUDA cores, one
-// block a row; each warp streams whole key rows with one vector load a lane,
-// KEYS keys in flight, and reduces each score over the warp with shuffles.
+// float32 (decode_split_f32_kernel): the same split-KV schedule over a
+// cluster (kv_split over the f32 kernel's own cluster fit, the same chunk),
+// producer warp, ring and merges, with full f32 products on the CUDA cores:
+// the route is held to 2e-5, which TF32 would not meet, and it is bytes-bound
+// (G <= 8 multiply-adds a loaded float each for Q K^T and P V, where an SM
+// streams ~15 bytes a cycle at the card's memory rate).  What holds it back
+// (PERF.md): the fixed cost of the bf16 kernel's (~0.010 ms), and the
+// arithmetic, which four warps do not hide entirely behind the loads.
+//   * a stage is 16 KB of K and 16 KB of V: 4096 / D keys (64, 32 or 16) in
+//     one unswizzled TMA box each, rows of D floats; three stages, 96 KB, and
+//     the CTA's partial: two CTAs an SM at every head dim;
+//   * a consumer warp takes a quarter of each stage's keys, several keys a
+//     warp step: a lane holds 16 columns of a key row (8 lanes a row at head
+//     dim 128; 4 or 8 columns with 8 heads a pass, whose registers would
+//     spill) as float4s 4*LPK columns apart, so each load of a step reads
+//     whole 128-byte pieces of rows (free of bank conflicts at head dim 128
+//     and 256; two-way at 64, 64 bytes a row a piece); q's heads (up
+//     to 8 a pass) and their accumulators sit in registers at the same
+//     columns.  A score is the lane's dot product summed over the key's
+//     lanes with shuffles (three rounds at 8 lanes, where 32 lanes a row
+//     took five and ran 1.5x slower); the online softmax runs in the base-2
+//     domain over a batch of steps, its running max shared by the warp's
+//     keys, and a key past the split's end is not read for P V;
+//   * the warps' partials are merged in warp order, then the splits' in
+//     split order over distributed shared memory, l == 0 -> 1: the
+//     arithmetic of decode_attention_split_ref.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -71,164 +94,12 @@
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int NTHREADS = 512;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int KEYS = 4;   // keys in flight per warp and iteration
-
-// N consecutive elements -> N floats, one vector load.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N == 8) {
-    float4 t = *reinterpret_cast<const float4*>(p);
-    float4 u = *reinterpret_cast<const float4*>(p + 4);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-    out[4] = u.x; out[5] = u.y; out[6] = u.z; out[7] = u.w;
-  } else if constexpr (N == 4) {
-    float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else {
-    static_assert(N == 2, "2, 4 or 8 elements a lane");
-    float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
-
 struct Strides {
   long long q_b, q_h;
   long long k_b, k_s, k_h;
   long long v_b, v_s, v_h;
   long long o_b, o_h;
 };
-
-template <typename T, int D, int GC>
-__global__ void __launch_bounds__(NTHREADS)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ lens,
-                   T* __restrict__ o, int start, int Hk, int G, int S,
-                   Strides st, float scale_log2e) {
-  constexpr int EPL = D / 32;   // elements of a row held by one lane
-  __shared__ float sm_m[NWARPS][GC];
-  __shared__ float sm_l[NWARPS][GC];
-  __shared__ float sm_acc[NWARPS][GC][D];
-
-  const int r = start + blockIdx.x;
-  const int b = r / Hk, hk = r % Hk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int len = min(max(lens[b], 0), S);
-
-  const T* kb = k + b * st.k_b + hk * st.k_h + lane * EPL;
-  const T* vb = v + b * st.v_b + hk * st.v_h + lane * EPL;
-
-  for (int g0 = 0; g0 < G; g0 += GC) {
-    float qr[GC][EPL];
-#pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      if (g0 + g < G) {
-        load_vec<EPL>(q + b * st.q_b + (hk * G + g0 + g) * st.q_h + lane * EPL,
-                      qr[g]);
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) qr[g][e] *= scale_log2e;
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) qr[g][e] = 0.f;
-      }
-    }
-
-    float m[GC], l[GC], acc[GC][EPL];
-#pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      m[g] = NEG_INF;
-      l[g] = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-    }
-
-    for (int s0 = warp * KEYS; s0 < len; s0 += NWARPS * KEYS) {
-      float kr[KEYS][EPL], vr[KEYS][EPL];
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        if (s0 + j < len) {
-          load_vec<EPL>(kb + (long long)(s0 + j) * st.k_s, kr[j]);
-          load_vec<EPL>(vb + (long long)(s0 + j) * st.v_s, vr[j]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) { kr[j][e] = 0.f; vr[j][e] = 0.f; }
-        }
-      }
-      float sc[KEYS][GC];
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-#pragma unroll
-        for (int g = 0; g < GC; ++g) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) d += qr[g][e] * kr[j][e];
-          sc[j][g] = d;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int j = 0; j < KEYS; ++j) {
-#pragma unroll
-          for (int g = 0; g < GC; ++g)
-            sc[j][g] += __shfl_xor_sync(0xffffffffu, sc[j][g], off);
-        }
-      }
-
-#pragma unroll
-      for (int g = 0; g < GC; ++g) {
-        float m_new = m[g];
-#pragma unroll
-        for (int j = 0; j < KEYS; ++j)
-          if (s0 + j < len) m_new = fmaxf(m_new, sc[j][g]);
-        const float corr = exp2f(m[g] - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
-#pragma unroll
-        for (int j = 0; j < KEYS; ++j) {
-          const float p = (s0 + j < len) ? exp2f(sc[j][g] - m_new) : 0.f;
-          psum += p;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] += p * vr[j][e];
-        }
-        l[g] = l[g] * corr + psum;
-        m[g] = m_new;
-      }
-    }
-
-    // merge the warps' partial (m, l, acc)
-#pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      if (lane == 0) { sm_m[warp][g] = m[g]; sm_l[warp][g] = l[g]; }
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < GC * D; idx += NTHREADS) {
-      const int g = idx / D, d = idx % D;
-      if (g0 + g < G) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
-        float num = 0.f, den = 0.f;
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) {
-          const float f = exp2f(sm_m[w][g] - mx);
-          num += f * sm_acc[w][g][d];
-          den += f * sm_l[w][g];
-        }
-        if (den == 0.f) den = 1.f;   // no valid key: zeros, as the reference
-        store_one(o + b * st.o_b + (hk * G + g0 + g) * st.o_h + d, num / den);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16, split-KV over a thread block cluster, fed by TMA (the header
@@ -308,6 +179,95 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(SPLIT_CONSUMERS * 32) : "memory");
 }
 
+// A partial (O, m, l) of ROWS heads: O [ROWS][LD] floats, then m [ROWS]
+// and l [ROWS].  The consumer warps' partials of a pass, parked in the idle
+// ring one every `slot` floats, merged in warp order into the CTA's at
+// `part`, four columns a consumer thread: the pass's ng heads.
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void merge_warps(const float* ring, int slot,
+                                            float* part, int ng) {
+  for (int idx = threadIdx.x; idx < ng * (D / 4);
+       idx += SPLIT_CONSUMERS * 32) {
+    const int row = idx / (D / 4), col = (idx % (D / 4)) * 4;
+    float mw[SPLIT_CONSUMERS], lw[SPLIT_CONSUMERS];
+    float4 aw[SPLIT_CONSUMERS];
+#pragma unroll
+    for (int w = 0; w < SPLIT_CONSUMERS; ++w) {
+      const float* pw = ring + w * slot;
+      mw[w] = pw[ROWS * LD + row];
+      lw[w] = pw[ROWS * LD + ROWS + row];
+      aw[w] = *reinterpret_cast<const float4*>(pw + row * LD + col);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < SPLIT_CONSUMERS; ++w) mx = fmaxf(mx, mw[w]);
+    const float m_ref = (mx == -INFINITY) ? 0.f : mx;
+    float lsum = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < SPLIT_CONSUMERS; ++w) {
+      const float f = exp2f(mw[w] - m_ref);
+      lsum += f * lw[w];
+      a.x += f * aw[w].x;
+      a.y += f * aw[w].y;
+      a.z += f * aw[w].z;
+      a.w += f * aw[w].w;
+    }
+    *reinterpret_cast<float4*>(part + row * LD + col) = a;
+    if (col == 0) {
+      part[ROWS * LD + row] = mx;
+      part[ROWS * LD + ROWS + row] = lsum;
+    }
+  }
+}
+
+// After a cluster barrier every CTA's partial at `part` is complete; CTA
+// `split` merges columns [split*cw, (split+1)*cw) of the pass's ng heads
+// over the splits, four columns a consumer thread: f_j = 2^(m_j - m), O =
+// sum_j f_j O_j / sum_j f_j l_j in split order, and hands each four
+// columns to store(row, col, O).
+template <int D, int ROWS, int LD, class Store>
+__device__ __forceinline__ void merge_splits(const float* part, int ng,
+                                             int split, int nsplit,
+                                             Store store) {
+  const int cw4 = D / nsplit / 4;   // 4-column groups this CTA merges
+  for (int idx = threadIdx.x; idx < ng * cw4; idx += SPLIT_CONSUMERS * 32) {
+    const int row = idx / cw4, col = split * cw4 * 4 + (idx % cw4) * 4;
+    // the peers' maxima first; then each split's l and O, loaded and
+    // summed in split order (holding every split's O at once spills)
+    float mj[MAX_SPLIT];
+#pragma unroll
+    for (int j = 0; j < MAX_SPLIT; ++j)
+      mj[j] = j < nsplit
+                  ? ld_cluster_f32(cluster_map(part + ROWS * LD + row, j))
+                  : -INFINITY;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MAX_SPLIT; ++j) mx = fmaxf(mx, mj[j]);
+    const float m_ref = (mx == -INFINITY) ? 0.f : mx;   // no key at all
+    float den = 0.f;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < MAX_SPLIT; ++j) {
+      if (j < nsplit) {
+        const float lv =
+            ld_cluster_f32(cluster_map(part + ROWS * LD + ROWS + row, j));
+        const float4 av =
+            ld_cluster_f32x4(cluster_map(part + row * LD + col, j));
+        const float f = exp2f(mj[j] - m_ref);   // 0 for an empty split
+        den += f * lv;
+        num.x += f * av.x;
+        num.y += f * av.y;
+        num.z += f * av.z;
+        num.w += f * av.w;
+      }
+    }
+    if (den == 0.f) den = 1.f;   // no valid key: zeros, as the reference
+    store(row, col,
+          make_float4(num.x / den, num.y / den, num.z / den, num.w / den));
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(SPLIT_THREADS, split_ctas<D>())
 decode_split_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
@@ -325,8 +285,6 @@ decode_split_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sV = sK + T::STAGES * T::KV_BYTES;
   float* part = reinterpret_cast<float*>(sV + T::STAGES * T::KV_BYTES);
-  float* part_m = part + QROWS * T::LDP;     // [QROWS]
-  float* part_l = part_m + QROWS;            // [QROWS]
   uint64_t* full = reinterpret_cast<uint64_t*>(part + T::PART);
   uint64_t* empty = full + T::STAGES;
 
@@ -515,91 +473,42 @@ decode_split_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
         }
       }
       consumers_sync();
-      const float* ring = reinterpret_cast<const float*>(sK);
-      for (int idx = threadIdx.x; idx < ng * (D / 4);
-           idx += SPLIT_CONSUMERS * 32) {
-        const int row = idx / (D / 4), col = (idx % (D / 4)) * 4;
-        float mw[SPLIT_CONSUMERS], lw[SPLIT_CONSUMERS];
-        float4 aw[SPLIT_CONSUMERS];
-#pragma unroll
-        for (int w = 0; w < SPLIT_CONSUMERS; ++w) {
-          const float* pw = ring + w * T::PART;
-          mw[w] = pw[QROWS * T::LDP + row];
-          lw[w] = pw[QROWS * T::LDP + QROWS + row];
-          aw[w] = *reinterpret_cast<const float4*>(pw + row * T::LDP + col);
-        }
-        float mx = -INFINITY;
-#pragma unroll
-        for (int w = 0; w < SPLIT_CONSUMERS; ++w) mx = fmaxf(mx, mw[w]);
-        const float m_ref = (mx == -INFINITY) ? 0.f : mx;
-        float lsum = 0.f;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int w = 0; w < SPLIT_CONSUMERS; ++w) {
-          const float f = exp2f(mw[w] - m_ref);
-          lsum += f * lw[w];
-          a.x += f * aw[w].x;
-          a.y += f * aw[w].y;
-          a.z += f * aw[w].z;
-          a.w += f * aw[w].w;
-        }
-        *reinterpret_cast<float4*>(part + row * T::LDP + col) = a;
-        if (col == 0) {
-          part_m[row] = mx;
-          part_l[row] = lsum;
-        }
-      }
+      merge_warps<D, QROWS, T::LDP>(reinterpret_cast<const float*>(sK),
+                                    T::PART, part, ng);
       fence_proxy_async();   // TMA writes the ring again in the next pass
     }
 
-    // every CTA's partial is complete; CTA `split` merges columns
-    // [split*cw, (split+1)*cw) of the pass's heads over the splits, four
-    // columns a thread: f_j = 2^(m_j - m), O = sum_j f_j O_j / sum_j f_j l_j
-    // in split order
-    cluster_sync();
-    if (warp < SPLIT_CONSUMERS) {
-      const int cw4 = D / nsplit / 4;   // 4-column groups this CTA merges
-      for (int idx = threadIdx.x; idx < ng * cw4;
-           idx += SPLIT_CONSUMERS * 32) {
-        const int row = idx / cw4, col = split * cw4 * 4 + (idx % cw4) * 4;
-        // the peers' maxima first; then each split's l and O, loaded and
-        // summed in split order (holding every split's O at once spills)
-        float mj[MAX_SPLIT];
-#pragma unroll
-        for (int j = 0; j < MAX_SPLIT; ++j)
-          mj[j] = j < nsplit ? ld_cluster_f32(cluster_map(part_m + row, j))
-                             : -INFINITY;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < MAX_SPLIT; ++j) mx = fmaxf(mx, mj[j]);
-        const float m_ref = (mx == -INFINITY) ? 0.f : mx;   // no key at all
-        float den = 0.f;
-        float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int j = 0; j < MAX_SPLIT; ++j) {
-          if (j < nsplit) {
-            const float lv = ld_cluster_f32(cluster_map(part_l + row, j));
-            const float4 av =
-                ld_cluster_f32x4(cluster_map(part + row * T::LDP + col, j));
-            const float f = exp2f(mj[j] - m_ref);   // 0 for an empty split
-            den += f * lv;
-            num.x += f * av.x;
-            num.y += f * av.y;
-            num.z += f * av.z;
-            num.w += f * av.w;
-          }
-        }
-        if (den == 0.f) den = 1.f;   // no valid key: zeros, as the reference
-        *reinterpret_cast<uint2*>(o + b * o_b + (hk * G + g0 + row) * o_h +
-                                  col) =
-            make_uint2(pack_bf16(num.x / den, num.y / den),
-                       pack_bf16(num.z / den, num.w / den));
-      }
-    }
+    cluster_sync();   // every CTA's partial is complete
+    if (warp < SPLIT_CONSUMERS)
+      merge_splits<D, QROWS, T::LDP>(
+          part, ng, split, nsplit, [&](int row, int col, float4 x) {
+            *reinterpret_cast<uint2*>(o + b * o_b +
+                                      (hk * G + g0 + row) * o_h + col) =
+                make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+          });
     // no CTA overwrites its partial (next pass) or exits while a peer may
     // still read it
     cluster_sync();
   }
+}
+
+// the split kernels' launch configuration: clusters of nsplit CTAs along x,
+// `rows` clusters along y
+inline cudaLaunchConfig_t cluster_config(int nsplit, int rows, int smem,
+                                         cudaLaunchAttribute* attr,
+                                         cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, rows, 1);
+  cfg.blockDim = dim3(SPLIT_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int D>
@@ -624,18 +533,9 @@ int launch_split(const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int chunk = kv_split_chunk(S, nsplit);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, num_rows, 1);
-  cfg.blockDim = dim3(SPLIT_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = T::SMEM;
-  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg =
+      cluster_config(nsplit, num_rows, T::SMEM, attr, stream);
   const float scale_log2e = 1.4426950408889634f / sqrtf((float)D);
   err = cudaLaunchKernelEx(&cfg, kernel, map_k, map_v,
                            static_cast<const __nv_bfloat16*>(q),
@@ -656,46 +556,376 @@ int max_active_clusters(int nsplit) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, 1, 1);
-  cfg.blockDim = dim3(SPLIT_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = T::SMEM;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg = cluster_config(nsplit, 1, T::SMEM, attr, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* lens,
-             void* o, int start, int num_rows, int Hk, int G, int S,
-             const Strides& st, cudaStream_t stream) {
-  // scores are kept in the base-2 domain: exp(x) = exp2(x * log2(e))
+// ---------------------------------------------------------------------------
+// float32, split-KV over a thread block cluster, fed by TMA: the bf16
+// kernel's schedule (kv_split, its cluster of nsplit CTAs a row, a producer
+// warp and four consumer warps on a ring of mbarrier'd stages, the merges in
+// warp and then split order) with full f32 products on the CUDA cores (the
+// header says why).
+// ---------------------------------------------------------------------------
+
+// columns a lane holds at GC heads a pass: 16 up to 4 heads (4 lanes a key
+// row at head_dim 64, 8 at 128, 16 at 256: fewer shuffles a score), fewer
+// at 8 heads, whose Q and accumulators would spill
+template <int D, int GC>
+constexpr int f32_cpl() {
+  return GC <= (D == 256 ? 2 : 4) ? 16 : (D / 32 > 4 ? D / 32 : 4);
+}
+
+template <int D, int GC>
+struct F32Tile {
+  static constexpr int CPL = f32_cpl<D, GC>();        // columns a lane holds
+  static constexpr int LPK = D / CPL;                 // lanes of a key row
+  static constexpr int KPW = 32 / LPK;                // keys a warp step
+  static constexpr int BK = 4096 / D;                 // keys a stage
+  static constexpr int KW = BK / SPLIT_CONSUMERS;       // a consumer's of them
+  static constexpr int STEPS = KW / KPW;              // its warp steps
+  // warp steps whose scores are taken together (registers at D = 256)
+  static constexpr int BATCH_MAX = D == 256 ? 2 : 4;
+  static constexpr int BATCH = STEPS < BATCH_MAX ? STEPS : BATCH_MAX;
+  static constexpr int KV_BYTES = BK * D * 4;         // 16 KB of K or of V
+  static constexpr int STAGES = 3;
+  static_assert(STEPS >= 1 && STEPS % BATCH == 0 && KPW * LPK == 32,
+                "the lane layout");
+  static_assert(KEY_BLOCK % BK == 0, "a split's chunk is whole stages");
+};
+
+// the CTA's partial (O [GC][D], m [GC], l [GC]) in floats, and the shared
+// memory of the kernel at GC heads a pass: the K and V rings (aligned to
+// 128 bytes for TMA), the partial, barriers
+template <int D, int GC>
+struct F32Smem {
+  using T = F32Tile<D, GC>;
+  // m and l padded to whole float4s: each warp's slot starts on 16 bytes
+  static constexpr int PART = GC * D + (2 * GC + 3) / 4 * 4;
+  static constexpr int BYTES =
+      128 + 2 * T::STAGES * T::KV_BYTES + PART * 4 + 2 * T::STAGES * 8;
+  // the consumer warps park their partials in the idle ring
+  static_assert(SPLIT_CONSUMERS * PART * 4 <= 2 * T::STAGES * T::KV_BYTES,
+                "the ring holds the warps' partials");
+  static_assert(2 * (BYTES + 1024) <= 233472, "two CTAs an SM");
+};
+
+// column of float j of lane `gl` of a key row: the lane's float4s lie 4*LPK
+// columns apart, so a warp step reads whole rows, 16 bytes a lane
+template <int LPK>
+__device__ __forceinline__ int f32_col(int gl, int j) {
+  return (j >> 2) * 4 * LPK + 4 * gl + (j & 3);
+}
+
+template <int D, int GC>
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+decode_split_f32_kernel(const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const float* __restrict__ q,
+                        const int* __restrict__ lens, float* __restrict__ o,
+                        int start, int Hk, int G, int S, int chunk,
+                        long long q_b, long long q_h, long long o_b,
+                        long long o_h, float scale_log2e) {
+  using T = F32Tile<D, GC>;
+  using M = F32Smem<D, GC>;
+  constexpr int CPL = T::CPL;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(
+      smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127));
+  float* sV = sK + T::STAGES * T::BK * D;
+  float* part = sV + T::STAGES * T::BK * D;   // O [GC][D], m [GC], l [GC]
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + M::PART);
+  uint64_t* empty = full + T::STAGES;
+
+  const int split = blockIdx.x;     // the CTA's rank in its cluster
+  const int nsplit = gridDim.x;     // the cluster spans x
+  const int r = start + blockIdx.y;
+  const int b = r / Hk, hk = r % Hk;
+  const int len = min(max(lens[b], 0), S);
+  const int k_begin = split * chunk;
+  const int k_end = min(k_begin + chunk, len);
+  const int nblocks =
+      k_end > k_begin ? (k_end - k_begin + T::BK - 1) / T::BK : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == SPLIT_CONSUMERS && lane == 0 && nblocks > 0) {
+    tma_prefetch_map(&map_k);
+    tma_prefetch_map(&map_v);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's expect_tx
+      mbar_init(&empty[s], SPLIT_CONSUMERS);   // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int g0 = 0; g0 < G; g0 += GC) {
+    const int ng = min(GC, G - g0);
+    if (warp == SPLIT_CONSUMERS) {
+      if (lane == 0) {
+        for (int blk = 0; blk < nblocks; ++blk) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], 2 * T::KV_BYTES);
+          const int key = k_begin + blk * T::BK;
+          tma_load_4d(sK + stage * T::BK * D, &map_k, &full[stage], 0, hk,
+                      key, b);
+          tma_load_4d(sV + stage * T::BK * D, &map_v, &full[stage], 0, hk,
+                      key, b);
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else {
+      // lanes [grp*LPK, (grp+1)*LPK) take key grp of a warp step
+      const int grp = lane / T::LPK, gl = lane % T::LPK;
+      // this pass's heads, in the base-2 domain; heads >= ng zero
+      float qr[GC][CPL];
+      const float* qb = q + b * q_b + (long long)(hk * G + g0) * q_h;
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+#pragma unroll
+        for (int j = 0; j < CPL; j += 4) {
+          float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (g < ng)
+            t = *reinterpret_cast<const float4*>(qb + g * q_h +
+                                                 f32_col<T::LPK>(gl, j));
+          qr[g][j] = t.x * scale_log2e;
+          qr[g][j + 1] = t.y * scale_log2e;
+          qr[g][j + 2] = t.z * scale_log2e;
+          qr[g][j + 3] = t.w * scale_log2e;
+        }
+      }
+      float m[GC], l[GC], acc[GC][CPL];
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        m[g] = -INFINITY;
+        l[g] = 0.f;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) acc[g][j] = 0.f;
+      }
+      const int kw0 = warp * T::KW;   // this warp's first key row of a stage
+
+      for (int blk = 0; blk < nblocks; ++blk) {
+        mbar_wait(&full[stage], phase);
+        const float* kt = sK + stage * T::BK * D;
+        const float* vt = sV + stage * T::BK * D;
+        const int kpos0 = k_begin + blk * T::BK;
+#pragma unroll
+        for (int s0 = 0; s0 < T::STEPS; s0 += T::BATCH) {
+          // scores of BATCH warp steps: each lane's columns, then summed
+          // over the key's LPK lanes (every one of them holds the sum)
+          float sc[T::BATCH][GC];
+          bool valid[T::BATCH];
+#pragma unroll
+          for (int i = 0; i < T::BATCH; ++i) {
+            const int row = kw0 + (s0 + i) * T::KPW + grp;
+            valid[i] = kpos0 + row < k_end;
+            float kr[CPL];
+#pragma unroll
+            for (int j = 0; j < CPL; j += 4)
+              *reinterpret_cast<float4*>(&kr[j]) =
+                  *reinterpret_cast<const float4*>(kt + row * D +
+                                                   f32_col<T::LPK>(gl, j));
+#pragma unroll
+            for (int g = 0; g < GC; ++g) {
+              float d = 0.f;
+#pragma unroll
+              for (int j = 0; j < CPL; ++j) d = fmaf(qr[g][j], kr[j], d);
+              sc[i][g] = d;
+            }
+          }
+#pragma unroll
+          for (int off = T::LPK / 2; off > 0; off >>= 1) {
+#pragma unroll
+            for (int i = 0; i < T::BATCH; ++i) {
+#pragma unroll
+              for (int g = 0; g < GC; ++g)
+                sc[i][g] += __shfl_xor_sync(0xffffffffu, sc[i][g], off);
+            }
+          }
+          // online softmax; the warp's key groups share one running max
+#pragma unroll
+          for (int g = 0; g < GC; ++g) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int i = 0; i < T::BATCH; ++i)
+              if (valid[i]) mx = fmaxf(mx, sc[i][g]);
+#pragma unroll
+            for (int off = T::LPK; off < 32; off <<= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m[g], mx);
+            // no valid key so far: exponents relative to 0, all p = 0
+            const float m_ref = (m_new == -INFINITY) ? 0.f : m_new;
+            const float corr = exp2f(m[g] - m_ref);
+            float psum = 0.f;
+#pragma unroll
+            for (int i = 0; i < T::BATCH; ++i) {
+              const float p = valid[i] ? exp2f(sc[i][g] - m_ref) : 0.f;
+              sc[i][g] = p;
+              psum += p;
+            }
+            l[g] = l[g] * corr + psum;
+            m[g] = m_new;
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) acc[g][j] *= corr;
+          }
+          // O += P V; a key past the split's end is not read, so stale
+          // values there (a NaN, say) cannot reach the sums
+#pragma unroll
+          for (int i = 0; i < T::BATCH; ++i) {
+            if (!valid[i]) continue;
+            const int row = kw0 + (s0 + i) * T::KPW + grp;
+            float vr[CPL];
+#pragma unroll
+            for (int j = 0; j < CPL; j += 4)
+              *reinterpret_cast<float4*>(&vr[j]) =
+                  *reinterpret_cast<const float4*>(vt + row * D +
+                                                   f32_col<T::LPK>(gl, j));
+#pragma unroll
+            for (int g = 0; g < GC; ++g) {
+#pragma unroll
+              for (int j = 0; j < CPL; ++j)
+                acc[g][j] = fmaf(sc[i][g], vr[j], acc[g][j]);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // the warp's key groups into one partial (they share m)
+#pragma unroll
+      for (int off = T::LPK; off < 32; off <<= 1) {
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+#pragma unroll
+          for (int j = 0; j < CPL; ++j)
+            acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+        }
+      }
+      // the warps' partials -> the ring, idle once every warp is done with
+      // its last block (the producer waits at the cluster barrier), one
+      // slot a warp; then the CTA's (O, m, l) of the pass's ng heads,
+      // merged over the warps in warp order, four columns a thread
+      consumers_sync();
+      float* wpart = sK + warp * M::PART;
+      if (grp == 0) {
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          if (g >= ng) continue;
+#pragma unroll
+          for (int j = 0; j < CPL; j += 4)
+            *reinterpret_cast<float4*>(wpart + g * D + f32_col<T::LPK>(gl, j)) =
+                make_float4(acc[g][j], acc[g][j + 1], acc[g][j + 2],
+                            acc[g][j + 3]);
+          if (gl == 0) {
+            wpart[GC * D + g] = m[g];
+            wpart[GC * D + GC + g] = l[g];
+          }
+        }
+      }
+      consumers_sync();
+      merge_warps<D, GC, D>(sK, M::PART, part, ng);
+      fence_proxy_async();   // TMA writes the ring again in the next pass
+    }
+
+    cluster_sync();   // every CTA's partial is complete
+    if (warp < SPLIT_CONSUMERS)
+      merge_splits<D, GC, D>(
+          part, ng, split, nsplit, [&](int row, int col, float4 x) {
+            *reinterpret_cast<float4*>(o + b * o_b +
+                                       (hk * G + g0 + row) * o_h + col) = x;
+          });
+    // no CTA overwrites its partial (next pass) or exits while a peer may
+    // still read it
+    cluster_sync();
+  }
+}
+
+template <int D, int GC>
+int launch_split_f32(const void* q, const void* k, const void* v,
+                     const void* lens, void* o, int start, int num_rows, int B,
+                     int Hk, int G, int S, int nsplit, const Strides& st,
+                     cudaStream_t stream) {
+  using T = F32Tile<D, GC>;
+  using M = F32Smem<D, GC>;
+  if (num_rows > 65535) return -1;   // grid y
+  // [B, S, Hk, D] as 4-D maps {D, Hk, S, B}: boxes of D x 1 x BK keys, the
+  // rows unswizzled (a warp reads a whole row, 16 bytes a lane)
+  const uint64_t esz = 4;
+  const uint64_t dims[4] = {D, (uint64_t)Hk, (uint64_t)S, (uint64_t)B};
+  const uint32_t box[4] = {D, 1, T::BK, 1};
+  CUtensorMap map_k, map_v;
+  const uint64_t ks[3] = {st.k_h * esz, st.k_s * esz, st.k_b * esz};
+  if (int e = encode_map(&map_k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         CU_TENSOR_MAP_SWIZZLE_NONE, k, 4, dims, ks, box))
+    return e;
+  const uint64_t vs[3] = {st.v_h * esz, st.v_s * esz, st.v_b * esz};
+  if (int e = encode_map(&map_v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         CU_TENSOR_MAP_SWIZZLE_NONE, v, 4, dims, vs, box))
+    return e;
+
+  auto kernel = decode_split_f32_kernel<D, GC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, M::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config(nsplit, num_rows, M::BYTES, attr, stream);
   const float scale_log2e = 1.4426950408889634f / sqrtf((float)D);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const int* lp = static_cast<const int*>(lens);
-  T* op = static_cast<T*>(o);
-  // heads a pass: up to 4; 2 at head_dim 256, whose partials of 4 heads
-  // would pass the 48 KB of static shared memory
-  constexpr int GMAX = D == 256 ? 2 : 4;
-  if (G == 1)
-    decode_attn_kernel<T, D, 1><<<num_rows, NTHREADS, 0, stream>>>(
-        qp, kp, vp, lp, op, start, Hk, G, S, st, scale_log2e);
-  else if (G == 2)
-    decode_attn_kernel<T, D, 2><<<num_rows, NTHREADS, 0, stream>>>(
-        qp, kp, vp, lp, op, start, Hk, G, S, st, scale_log2e);
-  else
-    decode_attn_kernel<T, D, GMAX><<<num_rows, NTHREADS, 0, stream>>>(
-        qp, kp, vp, lp, op, start, Hk, G, S, st, scale_log2e);
+  err = cudaLaunchKernelEx(&cfg, kernel, map_k, map_v,
+                           static_cast<const float*>(q),
+                           static_cast<const int*>(lens),
+                           static_cast<float*>(o), start, Hk, G, S,
+                           kv_split_chunk(S, nsplit), st.q_b, st.q_h, st.o_b,
+                           st.o_h, scale_log2e);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// heads a pass: G itself up to 8 (1, 2, 4 or 8 registers' worth), passes of
+// 8 above (RecurrentGemma's MQA: G = 16)
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* lens,
+               void* o, int start, int num_rows, int B, int Hk, int G, int S,
+               int nsplit, const Strides& st, cudaStream_t stream) {
+#define F32_GC(GC)                                                       \
+  launch_split_f32<D, GC>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, \
+                          nsplit, st, stream)
+  return G == 1 ? F32_GC(1) : G == 2 ? F32_GC(2) : G <= 4 ? F32_GC(4)
+                                                          : F32_GC(8);
+#undef F32_GC
+}
+
+// clusters of `nsplit` CTAs of the f32 kernel for head dim D that the current
+// GPU runs at once, from its instance of 8 heads a pass: the most shared
+// memory and registers (every instance is built for two CTAs an SM)
+template <int D>
+int max_active_clusters_f32(int nsplit) {
+  using M = F32Smem<D, 8>;
+  auto kernel = decode_split_f32_kernel<D, 8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, M::BYTES);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(nsplit, 1, M::BYTES, attr, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
@@ -710,24 +940,33 @@ extern "C" int decode_attention_kv_split(int R_total, int S, const int* fit,
   return 0;
 }
 
-// Clusters of `nsplit` CTAs of the split kernel for head dim D that the
-// current GPU runs at once (cudaOccupancyMaxActiveClusters), or minus a CUDA
-// error code (-1: a D or nsplit the kernel does not take).
-extern "C" int decode_attention_max_active_clusters(int D, int nsplit) {
+// Clusters of `nsplit` CTAs of the split kernel of `dtype` (0 = float32, 1 =
+// bfloat16) for head dim D that the current GPU runs at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code (-1: a D,
+// dtype or nsplit the kernels do not take).
+extern "C" int decode_attention_max_active_clusters(int D, int dtype,
+                                                    int nsplit) {
   if (nsplit < 1 || nsplit > MAX_SPLIT || (nsplit & (nsplit - 1))) return -1;
-  if (D == 64) return max_active_clusters<64>(nsplit);
-  if (D == 128) return max_active_clusters<128>(nsplit);
-  if (D == 256) return max_active_clusters<256>(nsplit);
+  if (dtype == 0) {
+    if (D == 64) return max_active_clusters_f32<64>(nsplit);
+    if (D == 128) return max_active_clusters_f32<128>(nsplit);
+    if (D == 256) return max_active_clusters_f32<256>(nsplit);
+  } else if (dtype == 1) {
+    if (D == 64) return max_active_clusters<64>(nsplit);
+    if (D == 128) return max_active_clusters<128>(nsplit);
+    if (D == 256) return max_active_clusters<256>(nsplit);
+  }
   return -1;
 }
 
 // Rows [start, start+num_rows) of the R_total = B*Hk rows of decode
 // attention, written in place into o.  q, o: [B,Hq,D] (strides in elements,
 // last stride 1); k, v: [B,S,Hk,D]; lens: [B] int32.  dtype: 0 = float32,
-// 1 = bfloat16.  route: 0 = the f32 kernel, 1 = bf16 split-KV over clusters
-// of nsplit CTAs (1, 2, 4 or 8: the wrapper passes kv_split's for the whole
-// call).  Returns the CUDA error code of the launch (0 = success), -1 for a shape or route the kernel does not take, or -2 if
-// a tensor map cannot be encoded.
+// 1 = bfloat16.  route: 0 = the f32 split kernel, 1 = the bf16 split kernel,
+// each over clusters of nsplit CTAs (1, 2, 4 or 8: the wrapper passes
+// kv_split's for the whole call and the kernel's cluster fit).  Returns the
+// CUDA error code of the launch (0 = success), -1 for a shape or route the
+// kernel does not take, or -2 if a tensor map cannot be encoded.
 extern "C" int decode_attention_atom(
     const void* q, const void* k, const void* v, const void* lens, void* o,
     int start, int num_rows, int R_total, int Hk, int G, int S, int D,
@@ -737,26 +976,21 @@ extern "C" int decode_attention_atom(
     void* stream) {
   if (num_rows <= 0) return 0;
   if (Hk <= 0 || R_total % Hk || start < 0 || start + num_rows > R_total ||
-      (D != 64 && D != 128 && D != 256))
+      (D != 64 && D != 128 && D != 256) || nsplit < 1 ||
+      nsplit > MAX_SPLIT || (nsplit & (nsplit - 1)) || dtype != route)
     return -1;
   const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && route == 0) {
-#define DECODE_F32(DIM) \
-  launch_d<float, DIM>(q, k, v, lens, o, start, num_rows, Hk, G, S, st, s)
-    return D == 64 ? DECODE_F32(64) : D == 128 ? DECODE_F32(128)
-                                               : DECODE_F32(256);
-#undef DECODE_F32
-  }
-  if (dtype == 1 && route == 1) {
-    if (nsplit < 1 || nsplit > MAX_SPLIT || (nsplit & (nsplit - 1))) return -1;
-    const int B = R_total / Hk;
-#define DECODE_SPLIT(DIM)                                                   \
-  launch_split<DIM>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, nsplit, \
-                    st, s)
-    return D == 64 ? DECODE_SPLIT(64) : D == 128 ? DECODE_SPLIT(128)
-                                                 : DECODE_SPLIT(256);
-#undef DECODE_SPLIT
-  }
+  const int B = R_total / Hk;
+#define DECODE(FN, DIM) \
+  FN<DIM>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, nsplit, st, s)
+  if (dtype == 0)
+    return D == 64 ? DECODE(launch_f32, 64) : D == 128 ? DECODE(launch_f32, 128)
+                                                       : DECODE(launch_f32, 256);
+  if (dtype == 1)
+    return D == 64 ? DECODE(launch_split, 64)
+                   : D == 128 ? DECODE(launch_split, 128)
+                              : DECODE(launch_split, 256);
+#undef DECODE
   return -1;
 }

@@ -229,7 +229,7 @@ flash_attn_tf32_kernel(const float* __restrict__ q,
           frag_a_ldsm<P>(r, qw, 8 * j, lane);
           const float xq[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
                                __uint_as_float(r[2]), __uint_as_float(r[3])};
-          split4(ah, al, xq);
+          split4<false>(ah, al, xq);   // Q scaled: below the cap
           // lanes 8m ... 8m+7 address matrix m: keys 8 (m / 2) ..., d 8j +
           // 4 (m % 2) ...: b0, b1 of key tile 0, then of key tile 1
           const float* kr = ks + ((lane & 7) + ((lane >> 4) << 3)) * P +
@@ -237,7 +237,7 @@ flash_attn_tf32_kernel(const float* __restrict__ q,
           ldmatrix_x4(kh, kr);
           ldmatrix_x4(kl, kr + F::PLANE);
         } else {
-          frag_a<P>(ah, al, qw, 8 * j, g, t);
+          frag_a<P, false>(ah, al, qw, 8 * j, g, t);
 #pragma unroll
           for (int n = 0; n < NS; ++n) {
             frag_b_nk<P>(*reinterpret_cast<unsigned(*)[2]>(kh + 2 * n),

@@ -958,10 +958,16 @@ __device__ __forceinline__ const T* head_base(const void* p, long long sb,
 // reads cost more here than the four ALU operations of a split (hi and lo
 // planes of the resident tile, 64-row tiles and 8-row parts of each block:
 // 3.92 ms against 3.05 at olmo-1b's shape in one call, NVIDIA H100 80GB
-// HBM3, 700 W).  Every warp owns 16 rows of the tile (a row group); at
-// head_dim 256 a dQ warp takes a part of each streamed block and a dK/dV
-// warp a part of the columns (its dK and dV would take 256 registers), and
-// the parts' sums meet in shared memory at the end, added in part order.
+// HBM3, 700 W).  The landed blocks take the capped rounding (`tf32_rna`);
+// the resident tile takes it only if it holds a finite value the cap
+// rounds (`tf32_needs_cap`, once a tile), else the bare rounding, the same
+// bits: the cap's two more operations in the fragments' split cost 4.5 %
+// at olmo-1b's shape in one call, NVIDIA H100 80GB HBM3, 700 W.  P and dS,
+// computed, take the bare one.  Every warp owns 16 rows of the tile (a row
+// group); at head_dim 256 a dQ warp takes a part of each streamed block and
+// a dK/dV warp a part of the columns (its dK and dV would take 256
+// registers), and the parts' sums meet in shared memory at the end, added
+// in part order.
 template <int D>
 struct F32 {
   static constexpr int P = D + 4;                // floats a plane row
@@ -1020,7 +1026,7 @@ __device__ __forceinline__ void split_rows(float* t) {
 // s0 = rows of the raw resident plane a0 times rows of the streamed planes
 // at b0 (hi; lo BR rows on), and s1 likewise of a1 and b1: two scores [16 x
 // 8NS] over d < D, taken in one loop so their chains overlap
-template <int D, int BR, int NS>
+template <int D, int BR, int NS, bool CAP>
 __device__ __forceinline__ void scores(float (&s0)[NS][4], float (&s1)[NS][4],
                                        const float* a0, const float* b0,
                                        const float* a1, const float* b1,
@@ -1039,8 +1045,8 @@ __device__ __forceinline__ void scores(float (&s0)[NS][4], float (&s1)[NS][4],
     for (int q = 0; q < KC; ++q) {
       const int k0 = k1 + 8 * q;
       unsigned ah[4], al[4], ch[4], cl[4];
-      frag_a<P>(ah, al, a0, k0, g, t);
-      frag_a<P>(ch, cl, a1, k0, g, t);
+      frag_a<P, CAP>(ah, al, a0, k0, g, t);
+      frag_a<P, CAP>(ch, cl, a1, k0, g, t);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         unsigned bh[2], bl[2], dh[2], dl[2];
@@ -1192,13 +1198,17 @@ __device__ __forceinline__ void dq_tf32(const Args& a, const In& in,
     load_block<D, SB, NT>(ring + F::STR, vb, in.v_s, rg.blk0 * SB, a.Sk);
     cp_async_commit();
   }
+  bool cap = false;   // whether the resident pair needs the capped rounding
   for (int i = 0; i < rg.n; ++i) {
     float* ks = ring + (i & 1) * 2 * F::STR;
     float* vs = ks + F::STR;
     cp_async_wait<0>();   // this thread's chunks of block i have landed
+    if (i == 0)           // and of the resident pair
+      cap = tf32_needs_cap<T, D, P, NT>(rq) || tf32_needs_cap<T, D, P, NT>(ro);
     split_rows<D, SB, NT>(ks);
     split_rows<D, SB, NT>(vs);
-    __syncthreads();   // block i is split; block i - 1 is no longer read
+    // block i is split; block i - 1 is no longer read
+    cap = __syncthreads_or(cap);
     if (i + 1 < rg.n) {
       float* nk = ring + ((i + 1) & 1) * 2 * F::STR;
       const int k1 = (rg.blk0 + i + 1) * SB;
@@ -1208,8 +1218,12 @@ __device__ __forceinline__ void dq_tf32(const Args& a, const In& in,
     }
     const int kp = (rg.blk0 + i) * SB + part * SW;   // the warp's first key
     float s[NS][4], dp[NS][4];
-    scores<D, SB, NS>(s, dp, rq + grp * 16 * P, ks + part * SW * P,
-                      ro + grp * 16 * P, vs + part * SW * P, g, t);
+    if (cap)
+      scores<D, SB, NS, true>(s, dp, rq + grp * 16 * P, ks + part * SW * P,
+                              ro + grp * 16 * P, vs + part * SW * P, g, t);
+    else
+      scores<D, SB, NS, false>(s, dp, rq + grp * 16 * P, ks + part * SW * P,
+                               ro + grp * 16 * P, vs + part * SW * P, g, t);
     const bool edge = (kp + SW > a.Sk) || (a.causal && kp + SW - 1 > off + qw) ||
                       (a.window > 0 && kp <= off + qw + 15 - a.window);
 #pragma unroll
@@ -1283,21 +1297,29 @@ __device__ __forceinline__ void dkv_tf32(const Args& a, const In& in,
                         in.v_s, tl.r0, a.Sk);
     stage_block(0, 0);
   }
+  bool cap = false;   // whether the resident pair needs the capped rounding
   for (int i = 0; i < rg.n; ++i) {
     const int stage = i & 1;
     float* qs = ring + stage * 2 * F::STR;
     float* os = qs + F::STR;
     cp_async_wait<0>();
+    if (i == 0)
+      cap = tf32_needs_cap<T, D, P, NT>(rk) || tf32_needs_cap<T, D, P, NT>(rv);
     split_rows<D, SB, NT>(qs);
     split_rows<D, SB, NT>(os);
-    __syncthreads();   // block i is split; block i - 1 is no longer read
+    // block i is split; block i - 1 is no longer read
+    cap = __syncthreads_or(cap);
     if (i + 1 < rg.n) stage_block(i + 1, stage ^ 1);
     const int q0 = (rg.blk0 + i % rg.nq) * SB;   // the block's first query
     const float* ls = sl + stage * SB;
     const float* ds = sd + stage * SB;
     float st[NS][4], dpt[NS][4];   // S^T, dP^T: 16 keys x SB queries
-    scores<D, SB, NS>(st, dpt, rk + grp * 16 * P, qs, rv + grp * 16 * P, os,
-                      g, t);
+    if (cap)
+      scores<D, SB, NS, true>(st, dpt, rk + grp * 16 * P, qs,
+                              rv + grp * 16 * P, os, g, t);
+    else
+      scores<D, SB, NS, false>(st, dpt, rk + grp * 16 * P, qs,
+                               rv + grp * 16 * P, os, g, t);
     const bool edge = (kw + 15 >= a.Sk) || (a.causal && kw + 15 > off + q0) ||
                       (a.window > 0 && kw <= off + q0 + SB - 1 - a.window);
 #pragma unroll

@@ -3,7 +3,8 @@
 // multiplies (wgmma) on 128-byte-swizzled shared memory, register
 // rebalancing between warpgroups, and the host-side encoding of tensor maps.
 //
-// Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
+// bf16 shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B
+// (decode attention's f32 rows are not swizzled: `encode_map`): a
 // box is at most 128 bytes (64 bf16) along its inner dimension; its rows of
 // 128 bytes lie one after another, and the 16-byte chunks of row r are
 // permuted by r % 8.  Every tile starts on a 1024-byte boundary (8 rows), so
@@ -446,23 +447,33 @@ inline PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
 // Error code of the C interfaces for a tensor map that cannot be encoded.
 constexpr int TENSOR_MAP_ERROR = -2;
 
-// A bf16 tensor map of rank `rank` with 128-byte swizzle and zero fill:
-// dims and box innermost first, strides in bytes of dims 1..rank-1.
-// Returns 0 or TENSOR_MAP_ERROR.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const uint64_t* dims, const uint64_t* strides,
-                           const uint32_t* box) {
+// A tensor map of `type` and `swizzle`, rank `rank`, zero fill: dims and box
+// innermost first, strides in bytes of dims 1..rank-1.  Returns 0 or
+// TENSOR_MAP_ERROR.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      CUtensorMapSwizzle swizzle, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box) {
   const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return TENSOR_MAP_ERROR;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
+      map, type, (cuuint32_t)rank, const_cast<void*>(base),
+      reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR;
+}
+
+// A bf16 tensor map with 128-byte swizzle (the tiles the header describes).
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                           const uint64_t* dims, const uint64_t* strides,
+                           const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                    box);
 }
 
 // streaming multiprocessors of the current device, or 0

@@ -64,23 +64,37 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
 }
 
 // the TF32 value nearest x, ties away from zero, as an f32 bit pattern: the
-// bit pattern plus half a TF32 step, its low 13 bits cleared, in two integer
-// operations.  cvt.rna.tf32.f32 gives the same bits for every finite x as a
-// conversion, which held the split back (the f32 matmul 2.35 -> 2.21 ms and
-// forward 0.275 -> 0.243 with the integer form; PERF.md).  A NaN may come
-// out as 0, an infinity or a NaN (the addition may carry through its
-// exponent): `tf32_lo` keeps it.
+// bit pattern plus half a TF32 step, capped (unsigned) at x's sign over
+// FLT_MAX's bits, its low 13 bits cleared.  The cap keeps a finite x whose
+// rounding would carry into the exponent (|x| >= 0x7F7FF000, ~3.4028e38)
+// finite, hi = +-0x7F7FE000 with a finite lo, where the bare sum gave an
+// infinity (ROADMAP C1); every other finite x rounds as cvt.rna.tf32.f32
+// does, a conversion that held the split back (the f32 matmul 2.35 -> 2.21
+// ms and forward 0.275 -> 0.243 with the integer form; PERF.md).  An
+// infinity stays one; a NaN may come out as 0, an infinity or a NaN (the
+// addition may carry through it): `tf32_lo` keeps it.
 __device__ __forceinline__ unsigned tf32_rna(float x) {
+  const unsigned b = __float_as_uint(x);
+  return min(b + 0x1000u, b | 0x7F7FFFFFu) & 0xffffe000u;
+}
+
+// the same rounding without the cap, two integer operations: the same bits
+// for |x| < 0x7F7FF000, for values bounded by construction (Q scaled by
+// log2(e) / sqrt(D) <= 0.18, probabilities) or computed (a score's
+// gradient: a value that large has overflowed the plain version's sums too)
+__device__ __forceinline__ unsigned tf32_rna_bare(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x's low part, x - hi, truncated to TF32 (its low 13 bits cleared, one
 // operation): a NaN when x is one, whatever `hi` became, so a NaN operand
-// gives NaN products, as in the plain f32 sums (an infinity gives NaN too:
-// inf - inf).  Truncated, the split leaves up to 2^-21 of x where rounding
-// leaves 2^-22, well under the f32 sums' own error (the emulation in
-// kernels/tf32.py reads the same, tests/test_torch_tf32_forward.py); a
-// rounding that let NaN through cost 7-33 % (PERF.md).
+// gives NaN products, as in the plain f32 sums.  An infinity gives NaN too
+// (inf - inf) where the plain sums give an infinity, a deliberate difference
+// (ROADMAP): a select for it would cost as the NaN one did.  Truncated, the
+// split leaves up to 2^-21 of x where rounding leaves 2^-22, well under the
+// f32 sums' own error (the emulation in kernels/tf32.py reads the same,
+// tests/test_torch_tf32_forward.py); a rounding that let NaN through cost
+// 7-33 % (PERF.md).
 __device__ __forceinline__ unsigned tf32_lo(float x, unsigned hi) {
   return __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
@@ -147,6 +161,25 @@ __device__ __forceinline__ void tf32_load_rows(float* dst, const float* src,
   }
 }
 
+// whether this thread's chunks of a raw R x C plane at `t` (pitch P, as
+// `tf32_load_rows` walks them), once landed, hold a finite value that the
+// cap rounds (|x| >= 0x7F7FF000): a tile without one may take the bare
+// rounding, the same bits
+template <int R, int C, int P, int NT>
+__device__ __forceinline__ bool tf32_needs_cap(const float* t) {
+  constexpr int CH = C / 4;
+  bool big = false;
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(t + (i / CH) * P + (i % CH) * 4);
+    const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      big |= (__float_as_uint(v[j]) & 0x7fffffffu) - 0x7F7FF000u < 0x1000u;
+  }
+  return big;
+}
+
 // four raw f32 words at `hi + lo` -> hi = tf32(x) at `hi`, lo = x - hi
 // truncated at `hi + lo`
 __device__ __forceinline__ void tf32_split_chunk(float* hi, int lo) {
@@ -179,24 +212,26 @@ __device__ __forceinline__ void tf32_split_rows(float* t) {
   }
 }
 
-// four f32 values as split TF32
+// four f32 values as split TF32: the capped rounding, or (CAP false) the
+// bare one for values bounded by construction
+template <bool CAP = true>
 __device__ __forceinline__ void split4(unsigned (&hi)[4], unsigned (&lo)[4],
                                        const float (&x)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    hi[j] = tf32_rna(x[j]);
+    hi[j] = CAP ? tf32_rna(x[j]) : tf32_rna_bare(x[j]);
     lo[j] = tf32_lo(x[j], hi[j]);
   }
 }
 
 // A fragment (16 x 8) of a raw plane stored [row][k] from row 0 of `p`,
 // columns k0 ... k0 + 7 (pitch P = 4 mod 32: no bank conflicts), split
-template <int P>
+template <int P, bool CAP = true>
 __device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
                                        const float* p, int k0, int g, int t) {
   const float x[4] = {p[g * P + k0 + t], p[(g + 8) * P + k0 + t],
                       p[g * P + k0 + t + 4], p[(g + 8) * P + k0 + t + 4]};
-  split4(hi, lo, x);
+  split4<CAP>(hi, lo, x);
 }
 
 // A fragment (16 x 8) of a plane stored [row][k] (pitch P = 4 mod 8: each
@@ -237,11 +272,12 @@ __device__ __forceinline__ void frag_b_kn_acc(unsigned (&r)[2], const float* p,
 }
 
 // an accumulator tile (16 x 8) as an A fragment over its 8 columns, split
+// (a computed value: the bare rounding)
 __device__ __forceinline__ void frag_of_acc(unsigned (&hi)[4],
                                             unsigned (&lo)[4],
                                             const float (&c)[4]) {
   const float x[4] = {c[0], c[2], c[1], c[3]};
-  split4(hi, lo, x);
+  split4<false>(hi, lo, x);
 }
 
 // c = a (16x8, row) * b (8x8, col), tf32 in, f32 out: a chain's first

@@ -7,12 +7,13 @@ each executed by one launch that writes in place into the running output.
 For a CUDA tensor an atom launches the hand-written kernel
 (``csrc/decode_attention.cu``) or raises.  The plain PyTorch version is
 taken only for tensors that lie on the CPU.  The kernel's route is decided
-here, before the launch (``plan``): float32 takes the CUDA-core kernel,
-bfloat16 the split-KV kernel fed by TMA, one cluster of ``nsplit`` CTAs a row
-(``kv_split`` mirrors the C side's schedule, checked when the library loads;
-``cluster_fit`` reads the card's cluster occupancy it needs).  Both load
-whole 16-byte chunks, so caches whose strides are not multiples of 8
-elements raise.
+here, before the launch (``plan``): both dtypes take a split-KV kernel fed
+by TMA, one cluster of ``nsplit`` CTAs a row, bfloat16 on the tensor cores
+(``split``) and float32 on the CUDA cores (``split_f32``); ``kv_split``
+mirrors the C side's schedule, checked when the library loads, over the
+cluster occupancy of the dtype's kernel that ``cluster_fit`` reads.  Both
+load through TMA, so caches whose strides are not multiples of 8 elements
+raise.
 """
 from __future__ import annotations
 
@@ -29,10 +30,10 @@ from repro_torch.roofline import cost
 launches = 0                      # kernel launches made by this module
 KEY_BLOCK = 64                    # keys of the split kernel's TMA block
 # route codes of the C interface
-ROUTES = {"f32": 0, "split": 1}
+ROUTES = {"split_f32": 0, "split": 1}
 SPLITS = (1, 2, 4, 8)              # split counts; 8 is the portable cluster size
 _lib = None
-_fit: dict[tuple[int, int], tuple[int, ...]] = {}
+_fit: dict[tuple[int, int, int], tuple[int, ...]] = {}
 
 
 def kv_split(R_total: int, S: int, fit: Sequence[int]) -> tuple[int, int]:
@@ -72,7 +73,7 @@ def _library():
                             "csrc/decode_attention.cu and ops.kv_split "
                             f"disagree (R_total={R}, S={S}, fit={fit})")
         lib.decode_attention_max_active_clusters.restype = ctypes.c_int
-        lib.decode_attention_max_active_clusters.argtypes = [ctypes.c_int] * 2
+        lib.decode_attention_max_active_clusters.argtypes = [ctypes.c_int] * 3
         fn = lib.decode_attention_atom
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
@@ -81,26 +82,30 @@ def _library():
     return _lib
 
 
-def max_active_clusters(head_dim: int, nsplit: int) -> int:
-    """Clusters of ``nsplit`` CTAs of the split kernel that the current GPU
-    runs at once (``cudaOccupancyMaxActiveClusters``)."""
-    n = _library().decode_attention_max_active_clusters(head_dim, nsplit)
+def max_active_clusters(head_dim: int, nsplit: int,
+                        dtype=torch.bfloat16) -> int:
+    """Clusters of ``nsplit`` CTAs of the split kernel of ``dtype`` that the
+    current GPU runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = _library().decode_attention_max_active_clusters(
+        head_dim, build.DTYPE_CODES[str(dtype)], nsplit)
     if n < 0:
         raise RuntimeError(f"decode_attention cluster occupancy query "
                            f"failed ({n})")
     return n
 
 
-def cluster_fit(device, head_dim: int) -> tuple[int, ...]:
+def cluster_fit(device, head_dim: int,
+                dtype=torch.bfloat16) -> tuple[int, ...]:
     """``max_active_clusters`` for each of ``SPLITS`` on a CUDA device, read
-    once per device and head dim."""
+    once per device, head dim and dtype."""
     idx = torch.device(device).index
     idx = torch.cuda.current_device() if idx is None else idx
-    if (idx, head_dim) not in _fit:
+    key = (idx, head_dim, build.DTYPE_CODES[str(dtype)])
+    if key not in _fit:
         with torch.cuda.device(idx):
-            _fit[idx, head_dim] = tuple(max_active_clusters(head_dim, n)
-                                        for n in SPLITS)
-    return _fit[idx, head_dim]
+            _fit[key] = tuple(max_active_clusters(head_dim, n, dtype)
+                              for n in SPLITS)
+    return _fit[key]
 
 
 def _check(q, k_cache, v_cache, lens, o):
@@ -123,16 +128,16 @@ def _check(q, k_cache, v_cache, lens, o):
 
 def plan(q, k_cache, v_cache) -> dict:
     """The kernel route of a call on CUDA tensors, decided before the
-    launch: ``{"route": "f32" | "split", "nsplit", "chunk"}`` (``nsplit``
-    and ``chunk`` for the split route, else 1 and ``S``).  Raises for an
-    operand the kernels do not take."""
+    launch: ``{"route": "split" | "split_f32", "nsplit", "chunk"}``, the
+    split schedule of ``kv_split`` over the dtype's kernel's cluster fit.
+    Raises for an operand the kernels do not take."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        code = build.check_attention_operand("decode attention", name, t)
+        build.check_attention_operand("decode attention", name, t)
     B, S, Hk = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
-    if code == build.DTYPE_CODES["torch.float32"]:
-        return {"route": "f32", "nsplit": 1, "chunk": S}
-    nsplit, chunk = kv_split(B * Hk, S, cluster_fit(q.device, q.shape[-1]))
-    return {"route": "split", "nsplit": nsplit, "chunk": chunk}
+    nsplit, chunk = kv_split(B * Hk, S, cluster_fit(q.device, q.shape[-1],
+                                                    q.dtype))
+    route = "split_f32" if q.dtype == torch.float32 else "split"
+    return {"route": route, "nsplit": nsplit, "chunk": chunk}
 
 
 def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,

@@ -17,10 +17,16 @@ import torch
 def tf32_round(x):
     """``x`` (f32) rounded to TF32, 10 mantissa bits, to nearest with ties
     away from zero, as ``cvt.rna.tf32.f32`` does for finite values: the f32
-    bit pattern plus half a TF32 step, its low 13 bits cleared (the kernels'
-    ``tf32_rna``; a NaN may come out as 0 or an infinity, as there)."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    bit pattern plus half a TF32 step, capped (unsigned) at x's sign over
+    FLT_MAX's bits, its low 13 bits cleared (the kernels' ``tf32_rna``).
+    The cap keeps the largest finite values finite (|x| >= 0x7F7FF000 gives
+    +-0x7F7FE000, not an infinity); an infinity stays one, and a NaN may
+    come out as 0, an infinity or a NaN, as there."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    bits = bits & 0xFFFFFFFF                        # as unsigned
+    hi = torch.minimum((bits + 0x1000) & 0xFFFFFFFF, bits | 0x7F7FFFFF)
+    hi = hi & 0xFFFFE000
+    return (hi - ((hi >> 31) << 32)).to(torch.int32).view(torch.float32)
 
 
 def tf32_lo(x, hi):

@@ -249,6 +249,14 @@ def dtensor(local, device_mesh, placements_, shape):
                               stride=tuple(reversed(strides)))
 
 
+def laid_out_as(x, like):
+    """``x`` redistributed to the layout of the DTensor ``like`` (as is if
+    either is a plain tensor)."""
+    if not (is_dtensor(x) and is_dtensor(like)):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
 def local_rows(fn, *args, shared: tuple = ()):
     """``fn(*args)`` on each rank's rows of the leading (group) dim, where
     any arg is a DTensor: every tensor arg is redistributed to its leading

@@ -11,16 +11,23 @@ the reference's: it returns new parameters and a new state, leaf by leaf in
 f32.  Weight decay applies to every leaf of two or more dimensions as
 stored, so the stacked ``[G, D]`` norm scales of a layer stack are decayed
 too, as in the reference.
+
+Over a mesh of ranks the blocks are the reference's global blocks of the
+whole leaf, never blocks of a rank's shard: a DTensor is quantized on each
+rank's piece only where that piece is whole blocks, else its last dim is
+gathered first (``_block_placements``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
-from repro_torch.models.sharding import pad as pad_
+from repro_torch.models.common import (is_dtensor, tree_leaves, tree_map,
+                                       tree_unflatten)
+from repro_torch.models.sharding import dtensor, laid_out_as
 
 PyTree = Any
 QBLOCK = 128     # values a quantization block holds, along the last dim
@@ -40,12 +47,14 @@ class QTensor:
 
 
 def quantize(x: torch.Tensor) -> QTensor:
+    if is_dtensor(x):
+        return _quantize_dtensor(x)
     shape = tuple(x.shape) if x.ndim else (1,)
     x2 = x.reshape(shape).to(torch.float32)
     last = shape[-1]
     pad = (-last) % QBLOCK
     if pad:
-        x2 = pad_(x2, (0, pad))
+        x2 = torch.nn.functional.pad(x2, (0, pad))
     blocks = x2.reshape(shape[:-1] + ((last + pad) // QBLOCK, QBLOCK))
     scale = (blocks.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
     q = torch.clamp(torch.round(blocks / scale[..., None]), -127, 127)
@@ -54,12 +63,79 @@ def quantize(x: torch.Tensor) -> QTensor:
 
 
 def dequantize(t: QTensor) -> torch.Tensor:
+    if is_dtensor(t.q):
+        return _dequantize_dtensor(t)
     shape = t.shape if t.shape else (1,)
     last_p = t.q.shape[-1]
     blocks = t.q.reshape(t.q.shape[:-1] + (last_p // QBLOCK, QBLOCK))
     out = blocks.to(torch.float32) * t.scale[..., None]
     out = out.reshape(t.q.shape[:-1] + (last_p,))[..., :shape[-1]]
     return out.reshape(t.shape)
+
+
+def quantize_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """``dequantize(quantize(x))``: ``x`` as its int8 blocks carry it.  Of
+    a DTensor, on each rank's whole blocks (``_block_placements``), with no
+    ``q`` laid out or moved."""
+    if not is_dtensor(x):
+        return dequantize(quantize(x))
+    dm = x.device_mesh
+    pl = _block_placements(x, x.shape[-1] if x.ndim else 1)
+    local = x.redistribute(dm, pl).to_local()
+    return dtensor(dequantize(quantize(local)), dm, pl, tuple(x.shape))
+
+
+def _block_placements(x, last: int) -> list:
+    """Placements of the DTensor ``x`` (a leaf of last dim ``last``, or its
+    ``q`` or ``scale``) under which each rank holds whole global blocks:
+    ``x``'s own where one mesh dim cuts the last dim into pieces of whole
+    blocks, else with that dim gathered; a partial sum reduced."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    cuts = [i for i, p in enumerate(pl) if p.is_shard(x.ndim - 1)]
+    if cuts and (len(cuts) > 1
+                 or last % (x.device_mesh.size(cuts[0]) * QBLOCK)):
+        pl = [Replicate() if i in cuts else p for i, p in enumerate(pl)]
+    return pl
+
+
+def _quantize_dtensor(x) -> QTensor:
+    """``quantize`` of a DTensor, its blocks the whole leaf's.  ``q`` and
+    ``scale`` come back laid out as ``launch/shardings._qtensor_sharding``
+    lays out the state's moments: ``q`` at the leaf's placements unless its
+    padded last dim does not divide, ``scale`` with its last dim whole."""
+    from torch.distributed.tensor import Replicate
+    dm = x.device_mesh
+    shape = tuple(x.shape) or (1,)
+    pl = _block_placements(x, shape[-1])
+    t = quantize(x.redistribute(dm, pl).to_local())
+    q_last = -(-shape[-1] // QBLOCK) * QBLOCK
+    q = dtensor(t.q, dm, pl, shape[:-1] + (q_last,))
+    scale = dtensor(t.scale, dm, pl, shape[:-1] + (q_last // QBLOCK,))
+    own = [Replicate() if p.is_partial() else p for p in x.placements]
+    cuts = [i for i, p in enumerate(own) if p.is_shard(x.ndim - 1)]
+    n = math.prod(dm.size(i) for i in cuts)
+    q_pl = [Replicate() if i in cuts and q_last % n else p
+            for i, p in enumerate(own)]
+    s_pl = [Replicate() if i in cuts else p for i, p in enumerate(own)]
+    return QTensor(q.redistribute(dm, q_pl), scale.redistribute(dm, s_pl),
+                   tuple(x.shape))
+
+
+def _dequantize_dtensor(t: QTensor):
+    """``dequantize`` of a ``QTensor`` of DTensors, each rank decoding whole
+    blocks; laid out as ``_block_placements`` leaves it."""
+    dm = t.q.device_mesh
+    last = t.shape[-1] if t.shape else 1
+    pl = _block_placements(t.q, last)
+    q = t.q.redistribute(dm, pl).to_local()
+    # a piece of whole blocks holds no padding
+    cut = any(p.is_shard(t.q.ndim - 1) for p in pl)
+    shape = (tuple(q.shape[:-1]) + (q.shape[-1] if cut else last,)
+             if t.shape else ())
+    local = dequantize(QTensor(q, t.scale.redistribute(dm, pl).to_local(),
+                               shape))
+    return dtensor(local, dm, pl, t.shape)
 
 
 class OptState(NamedTuple):
@@ -134,8 +210,10 @@ def adamw_update(params: PyTree, grads: PyTree, state: OptState,
 
     def leaf(p, g, mu, nu):
         g = g.to(torch.float32) * clip
-        mu = _decode_moment(mu, cfg.moment_dtype)
-        nu = _decode_moment(nu, cfg.moment_dtype, positive=True)
+        # an int8 moment decodes as whole blocks: back to the leaf's layout
+        mu = laid_out_as(_decode_moment(mu, cfg.moment_dtype), p)
+        nu = laid_out_as(_decode_moment(nu, cfg.moment_dtype, positive=True),
+                         p)
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
         upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)

@@ -18,8 +18,9 @@ Over a mesh the state's leaves and the batch are DTensors (``launch/
 train.py``; run the step under ``implicit_replication``): a microbatch keeps
 the batch's layout, and each gradient is reduced to its parameter's layout
 before it is accumulated (the data-axis all-reduce).  Gradient compression
-is refused there: its int8 blocks run along a last dim that the mesh may
-split.
+quantizes the whole leaf's int8 blocks there, as the reference does
+(``optim.optimizers.quantize_roundtrip`` of a DTensor), and its residual
+keeps the parameter's layout.
 """
 from __future__ import annotations
 
@@ -29,11 +30,11 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import (is_dtensor, tree_leaves, tree_map,
-                                       tree_unflatten)
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.registry import init_model, train_loss
+from repro_torch.models.sharding import laid_out_as
 from repro_torch.optim.optimizers import (AdamWConfig, OptState, adamw_init,
-                                          adamw_update, dequantize, quantize)
+                                          adamw_update, quantize_roundtrip)
 from repro_torch.optim.schedules import cosine_schedule
 
 PyTree = Any
@@ -68,30 +69,17 @@ def _split_micro(batch: dict, n: int) -> list[dict]:
         if v.shape[0] % n:
             raise ValueError(f"batch {k} of {v.shape[0]} rows does not split "
                              f"into {n} microbatches")
-    return [{k: _laid_out_as(v.chunk(n, dim=0)[i], v)
+    return [{k: laid_out_as(v.chunk(n, dim=0)[i], v)
              for k, v in batch.items()} for i in range(n)]
-
-
-def _laid_out_as(x, like):
-    """``x`` redistributed to the layout of the DTensor ``like`` (as is if
-    either is a plain tensor)."""
-    if not (is_dtensor(x) and is_dtensor(like)):
-        return x
-    return x.redistribute(like.device_mesh, like.placements)
 
 
 def _compress_grads(grads: PyTree, err: PyTree) -> tuple[PyTree, PyTree]:
     """int8 block quantization with error feedback.  Returns (decoded grads
     as they would arrive after the all-reduce, new residual)."""
     dec, new_err = [], []
-    if any(is_dtensor(g) for g in tree_leaves(grads)):
-        raise NotImplementedError(
-            "grad_compress over a mesh of ranks: the int8 blocks run along "
-            "each leaf's last dim, which the mesh may split; train without "
-            "it over a mesh")
     for g, e in zip(tree_leaves(grads), tree_leaves(err)):
         g32 = g.to(torch.float32) + e
-        dec.append(dequantize(quantize(g32)))
+        dec.append(laid_out_as(quantize_roundtrip(g32), g32))
         new_err.append(g32 - dec[-1])
     return tree_unflatten(grads, dec), tree_unflatten(grads, new_err)
 
@@ -107,7 +95,7 @@ def loss_and_grads(cfg: ArchConfig, tc: TrainConfig, params: PyTree,
                                    loss_chunk=tc.loss_chunk,
                                    attn_block=tc.attn_block)
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
-    g = [torch.zeros_like(p) if x is None else _laid_out_as(x, p)
+    g = [torch.zeros_like(p) if x is None else laid_out_as(x, p)
          for p, x in zip(leaves, g)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, g))

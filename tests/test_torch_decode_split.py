@@ -1,4 +1,4 @@
-"""The split-KV schedule of decode attention (K1's bf16 kernel), on the CPU.
+"""The split-KV schedule of decode attention (K1's kernels), on the CPU.
 
 ``ops.kv_split`` is the Python mirror of the schedule the CUDA kernel runs
 (the library checks the two agree when it loads); ``ops.plan`` is the
@@ -91,8 +91,12 @@ def test_kv_split_is_the_same_for_every_atom():
 # routing, decided before the launch
 # ---------------------------------------------------------------------------
 
-def _plan(monkeypatch, q, k, v):
-    monkeypatch.setattr(ops, "cluster_fit", lambda device, head_dim: FIT)
+def _plan(monkeypatch, q, k, v, fit=FIT, asked=None):
+    def cluster_fit(device, head_dim, dtype=torch.bfloat16):
+        if asked is not None:
+            asked.append((head_dim, dtype))
+        return fit
+    monkeypatch.setattr(ops, "cluster_fit", cluster_fit)
     return ops.plan(q, k, v)
 
 
@@ -121,9 +125,9 @@ def _unaligned(B, S, Hk, D, offset=0):
 @pytest.mark.parametrize("which", ["k", "v", "both"])
 @pytest.mark.parametrize("D", [64, 128])
 def test_plan_bf16_unaligned_pitch_raises(monkeypatch, which, D):
-    """Key pitches that are not whole 16-byte chunks: neither TMA nor the
-    f32 kernel's vector loads address them, so the wrapper raises before any
-    launch, as it did before the split kernel."""
+    """Key pitches that are not whole 16-byte chunks: TMA does not address
+    them, so the wrapper raises before any launch, as it did before the
+    split kernel."""
     B, S, Hk = 2, 100, 2
     q = torch.zeros(B, 4, D, dtype=torch.bfloat16)
     good = torch.zeros(B, S, Hk, D, dtype=torch.bfloat16)
@@ -145,14 +149,26 @@ def test_plan_bf16_misaligned_data_raises(monkeypatch):
         _plan(monkeypatch, q, kc, kc)
 
 
-def test_plan_f32_takes_the_cuda_core_kernel_and_needs_aligned_rows(
-        monkeypatch):
+@pytest.mark.parametrize("fit,nsplit", [(FIT, 4), ((132, 66, 30, 15), 2),
+                                        ((264, 132, 66, 33), 8)])
+def test_plan_f32_takes_the_split_schedule_of_its_own_fit_and_needs_aligned_rows(
+        monkeypatch, fit, nsplit):
+    """float32 takes the split-KV kernel (``split_f32``) at ``kv_split``'s
+    schedule over the f32 kernel's own cluster fit, asked for by dtype;
+    unaligned pitches raise, as for bf16."""
+    q = torch.zeros(4, 32, 128)
+    kc = torch.zeros(4, 2048, 8, 128)
+    asked = []
+    assert _plan(monkeypatch, q, kc, kc, fit, asked) == {
+        "route": "split_f32", "nsplit": nsplit, "chunk": 2048 // nsplit}
+    assert asked == [(128, torch.float32)]
     q = torch.zeros(2, 4, 64)
     kc = torch.zeros(2, 50, 2, 64)
-    assert _plan(monkeypatch, q, kc, kc)["route"] == "f32"
+    assert _plan(monkeypatch, q, kc, kc, fit) == {
+        "route": "split_f32", "nsplit": 1, "chunk": 64}
     odd = torch.zeros(2, 50, 2 * 64 + 1)[:, :, :128].unflatten(-1, (2, 64))
     with pytest.raises(ValueError, match="multiples of 8"):
-        _plan(monkeypatch, q, odd, odd)
+        _plan(monkeypatch, q, odd, odd, fit)
 
 
 # ---------------------------------------------------------------------------

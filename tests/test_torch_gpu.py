@@ -42,6 +42,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # it) summed in short chains, against exact f32 products; bf16 one rounding
 # of each side.
 MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# decode attention on the split-KV kernels, against the plain and the split
+# plain versions: float32 ``chip_smoke.TOL[("decode", "float32")]`` (f32
+# throughout, other summation orders), bfloat16 as TOL
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -73,8 +77,13 @@ def test_decode_kernel_random_shapes(cuda, seed, dtype):
     got = decode_ops.decode_attention(q, kc, vc, lens, n_atoms=n_atoms)
     torch.cuda.synchronize()
     assert decode_ops.launches == before + min(n_atoms, B * Hk)
-    want = decode_attention_ref(q, kc, vc, lens)
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    p = decode_ops.plan(q, kc, vc)
+    assert p["route"] == ("split_f32" if dtype == torch.float32 else "split")
+    for want in (decode_attention_ref(q, kc, vc, lens),
+                 decode_attention_split_ref(q, kc, vc, lens, p["nsplit"],
+                                            p["chunk"])):
+        assert (got.float() - want.float()).abs().max().item() \
+            <= DECODE_TOL[dtype]
     assert torch.equal(got, decode_ops.decode_attention(q, kc, vc, lens))
 
 
@@ -89,22 +98,25 @@ def _boundary_lens(rng, B, S, chunk):
     return [min(max(int(x), 0), S) for x in rng.choice(pool, B)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
-def test_decode_split_kernel_random_shapes(cuda, nsplit, D):
-    """The bf16 split-KV kernel at every split count, lens on the split
-    boundaries: values against the plain version and the split plain
-    version, atoms at n = 1, 3, R in permuted order bit-equal, and an atom
-    on a sentinel writes only its rows."""
+def test_decode_split_kernel_random_shapes(cuda, nsplit, D, dtype):
+    """The split-KV kernels (bf16, and f32 on the CUDA cores) at every split
+    count, lens on the split boundaries: values against the plain version
+    and the split plain version, atoms at n = 1, 3, R in permuted order
+    bit-equal, and an atom on a sentinel writes only its rows.  G = 12 and
+    20 take passes of heads on both (16 a pass in bf16, 8 in f32)."""
     rng = np.random.default_rng(300 + 10 * nsplit + D)
     B, Hk = int(rng.integers(1, 5)), int(rng.integers(1, 5))
-    G = int(rng.choice([1, 4, 12, 20]))           # 20: two passes of 16 heads
+    G = int(rng.choice([1, 4, 12, 20]))
     S = int(rng.integers(*SPLIT_S[nsplit]))
-    q = _randn(rng, (B, Hk * G, D), torch.bfloat16, cuda)
-    kc = _randn(rng, (B, S, Hk, D), torch.bfloat16, cuda)
-    vc = _randn(rng, (B, S, Hk, D), torch.bfloat16, cuda)
+    q = _randn(rng, (B, Hk * G, D), dtype, cuda)
+    kc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    vc = _randn(rng, (B, S, Hk, D), dtype, cuda)
     p = decode_ops.plan(q, kc, vc)
-    assert p["route"] == "split" and p["nsplit"] == nsplit
+    assert p["route"] == ("split_f32" if dtype == torch.float32 else "split")
+    assert p["nsplit"] == nsplit
     lens = torch.tensor(_boundary_lens(rng, B, S, p["chunk"]),
                         dtype=torch.int32, device=cuda)
     got = decode_ops.decode_attention(q, kc, vc, lens)
@@ -113,7 +125,7 @@ def test_decode_split_kernel_random_shapes(cuda, nsplit, D):
                  decode_attention_split_ref(q, kc, vc, lens, nsplit,
                                             p["chunk"])):
         assert (got.float() - want.float()).abs().max().item() \
-            <= TOL[torch.bfloat16]
+            <= DECODE_TOL[dtype]
     assert bool((got[lens == 0] == 0).all())
     R = B * Hk
     for n in (3, R):
@@ -130,20 +142,23 @@ def test_decode_split_kernel_random_shapes(cuda, nsplit, D):
         (og[start + num:] == 7.0).all())
 
 
-def test_decode_split_kernel_one_slot_long_context(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernel_one_slot_long_context(cuda, dtype):
     """One slot of llama3-8b at its 8192-token context: 8 rows, 8 splits."""
     rng = np.random.default_rng(9)
-    q = _randn(rng, (1, 32, 128), torch.bfloat16, cuda)
-    kc = _randn(rng, (1, 8192, 8, 128), torch.bfloat16, cuda)
-    vc = _randn(rng, (1, 8192, 8, 128), torch.bfloat16, cuda)
+    q = _randn(rng, (1, 32, 128), dtype, cuda)
+    kc = _randn(rng, (1, 8192, 8, 128), dtype, cuda)
+    vc = _randn(rng, (1, 8192, 8, 128), dtype, cuda)
     assert decode_ops.plan(q, kc, vc)["nsplit"] == 8
     lens = torch.tensor([8000], dtype=torch.int32, device=cuda)
     got = decode_ops.decode_attention(q, kc, vc, lens)
     torch.cuda.synchronize()
     want = decode_attention_ref(q, kc, vc, lens)
-    # outputs here are ~0.07 at most: held to two bf16 steps of the largest,
-    # below what a kernel that dropped one of the 8 splits would read
-    limit = headline_limit(want)
+    # outputs here are ~0.07 at most: bf16 is held to two bf16 steps of the
+    # largest, f32 to its 2e-5, each below what a kernel that dropped one of
+    # the 8 splits would read
+    limit = (headline_limit(want) if dtype == torch.bfloat16
+             else DECODE_TOL[dtype])
     assert (got.float() - want.float()).abs().max().item() <= limit
     assert dropped_split_err(q, kc, vc, lens, 1024) > limit
     assert torch.equal(got, decode_ops.decode_attention(
@@ -166,20 +181,22 @@ def test_decode_kernel_refuses_unaligned_pitch(cuda, D):
     assert decode_ops.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
-def test_decode_split_kernel_clusters_fit(cuda, D, nsplit):
-    """The card runs clusters of every split count (at most two CTAs an
-    SM), and the schedule puts every row's cluster in flight at once."""
-    n = decode_ops.max_active_clusters(D, nsplit)
+def test_decode_split_kernel_clusters_fit(cuda, D, nsplit, dtype):
+    """The card runs clusters of every split count of each dtype's kernel
+    (at most two CTAs an SM), and the schedule puts every row's cluster in
+    flight at once."""
+    n = decode_ops.max_active_clusters(D, nsplit, dtype)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert 0 < n and n * nsplit <= 2 * sms
-    assert decode_ops.cluster_fit(cuda, D)[decode_ops.SPLITS.index(nsplit)] == n
+    fit = decode_ops.cluster_fit(cuda, D, dtype)
+    assert fit[decode_ops.SPLITS.index(nsplit)] == n
     for B, Hk, S in ((4, 8, 2048), (1, 8, 8192), (8, 8, 2048)):
-        q = torch.zeros(B, 4 * Hk, D, dtype=torch.bfloat16, device=cuda)
-        kc = torch.zeros(B, S, Hk, D, dtype=torch.bfloat16, device=cuda)
+        q = torch.zeros(B, 4 * Hk, D, dtype=dtype, device=cuda)
+        kc = torch.zeros(B, S, Hk, D, dtype=dtype, device=cuda)
         p = decode_ops.plan(q, kc, kc)
-        fit = decode_ops.cluster_fit(cuda, D)
         assert p["nsplit"] == 1 or \
             fit[decode_ops.SPLITS.index(p["nsplit"])] >= B * Hk
 
@@ -201,11 +218,11 @@ def test_decode_kernel_head_dim_256_mqa_ring(cuda, dtype, lens):
     want = decode_attention_ref(q, kc, vc, lens_t)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     p = decode_ops.plan(q, kc, vc)
-    if dtype == torch.bfloat16:
-        assert p["route"] == "split" and p["nsplit"] > 1
-        split = decode_attention_split_ref(q, kc, vc, lens_t, p["nsplit"],
-                                           p["chunk"])
-        assert (got.float() - split.float()).abs().max().item() <= TOL[dtype]
+    assert p["nsplit"] > 1
+    split = decode_attention_split_ref(q, kc, vc, lens_t, p["nsplit"],
+                                       p["chunk"])
+    assert (got.float() - split.float()).abs().max().item() \
+        <= DECODE_TOL[dtype]
     assert torch.equal(got, decode_ops.decode_attention(
         q, kc, vc, lens_t, n_atoms=2, order=(1, 0)))
 
@@ -480,6 +497,30 @@ def test_matmul_kernel_f32_passes_nan(cuda, operand, N):
     assert nan.any() and torch.equal(torch.isnan(got), nan)
     assert (got[~nan] - want[~nan]).abs().max().item() \
         <= MM_TOL[torch.float32] * want[~nan].abs().max().item()
+
+
+def test_matmul_kernel_f32_keeps_flt_max_finite_and_an_inf_row_nan(cuda):
+    """Split TF32 at the edge of f32's range (ROADMAP C1): a row of a
+    holding FLT_MAX, whose TF32 rounding would carry into the exponent,
+    gives the plain product's finite row within MM_TOL; a row holding an
+    infinity gives NaN where the plain product is an infinity, the
+    deliberate difference ROADMAP names."""
+    rng = np.random.default_rng(7)
+    M, N, K = 200, 256, 512
+    a = _randn(rng, (M, K), torch.float32, cuda)
+    b = torch.full((K, N), 1e-30, device=cuda)
+    a[37, 100] = torch.finfo(torch.float32).max
+    a[38, 100] = -torch.finfo(torch.float32).max
+    a[90, 5] = float("inf")
+    got = matmul_ops.atom_matmul(a, b, block_m=128, block_n=128)
+    torch.cuda.synchronize()
+    want = matmul_ref(a, b)
+    fin = torch.ones(M, dtype=torch.bool, device=cuda)
+    fin[90] = False
+    assert torch.isfinite(want[fin]).all() and torch.isfinite(got[fin]).all()
+    assert (got[fin] - want[fin]).abs().max().item() \
+        <= MM_TOL[torch.float32] * want[fin].abs().max().item()
+    assert torch.isinf(want[90]).all() and torch.isnan(got[90]).all()
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
@@ -903,6 +944,40 @@ def test_flash_bwd_new_paths_match_plain_and_compose(cuda, dtype, D, seed):
                                           n_atoms=len(order), order=order,
                                           **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_f32_keeps_flt_max_in_k_finite(cuda, D):
+    """Split TF32 at the edge of f32's range in attention (ROADMAP C1): K
+    holds FLT_MAX in one column that every query zeroes, so the plain
+    forward and backward stay finite.  The forward splits K as it lands;
+    the backward's dK/dV tiles hold that K resident and take the capped
+    rounding for it (a bare one gives NaN through inf * 0): the output,
+    dK, dV and dQ's other columns match the plain version within 1e-5 of
+    their largest value."""
+    rng = np.random.default_rng(D)
+    B, S, Hq, Hk, d0 = 1, 200, 4, 2, 5
+    q, do = (_randn(rng, (B, S, Hq, D), torch.float32, cuda) for _ in range(2))
+    k, v = (_randn(rng, (B, S, Hk, D), torch.float32, cuda) for _ in range(2))
+    q[..., d0] = 0.0
+    k[0, 37, :, d0] = torch.finfo(torch.float32).max
+    o, lse = flash_ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    want_o = attention_ref(q, k, v, causal=True)
+    assert torch.isfinite(o).all()
+    assert _bwd_new_err(o, want_o) <= FLASH_F32_TOL
+    want = [torch.zeros(t.shape, device=cuda) for t in (q, k, v)]
+    bq, bk = flash_ops.bwd_blocks(torch.float32, D)
+    flash_bwd_atom_ref(q, k, v, do, lse, attention_delta_ref(o, do), *want,
+                       start=0, num_tiles=flash_ops.bwd_tile_space(q, k),
+                       block_q=bq, block_k=bk, causal=True)
+    dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                               causal=True)
+    torch.cuda.synchronize()
+    other = torch.arange(D, device=cuda) != d0
+    for g, w in ((dq[..., other], want[0][..., other]), (dk, want[1]),
+                 (dv, want[2])):
+        assert torch.isfinite(g).all()
+        assert _bwd_new_err(g, w) <= BWD_NEW_TOL[torch.float32]
 
 
 # keys that span each ring many times over (bf16 at 256: dQ tiles stream

@@ -10,7 +10,8 @@ Also: ``shard_act`` / ``shard_dims`` / ``local_rows`` / ``local_pointwise``
 leave plain tensors alone (with or without a mesh), ``use_mesh`` needs a
 process group to build its ``DeviceMesh``,
 ``kernels/sharded._kv_heads_of`` gives each rank the kv heads its q heads
-read, and gradient compression refuses DTensor gradients.
+read, and gradient compression over DTensor gradients takes the whole
+leaf's int8 blocks.
 """
 import itertools
 
@@ -117,22 +118,41 @@ import torch, torch.distributed as dist
 from torch.testing._internal.distributed.fake_pg import FakeStore
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.optim.optimizers import QBLOCK
 from repro_torch.train.step import _compress_grads
-dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+# rank 1 holds the model axis' second piece; the fake group's gather repeats
+# this rank's piece, so each leaf is two equal halves: gathered, it is whole
+dist.init_process_group("fake", store=FakeStore(), rank=1, world_size=4)
 dm = make_mesh((2, 2), ("data", "model")).device_mesh("cpu")
-g = {"w": distribute_tensor(torch.randn(8, 256), dm, [Replicate(), Shard(1)],
-                            src_data_rank=None)}
-try:
-    _compress_grads(g, g)
-except NotImplementedError as e:
-    print("REFUSED", e)
+assert list(dm.get_coordinate()) == [0, 1]
+gen = torch.Generator().manual_seed(0)
+for w in (100, QBLOCK):
+    half = torch.randn(8, w, generator=gen)
+    half[:, 0] = 10.0             # each row's largest value opens its piece
+    g = torch.cat([half, half], 1)
+    e = 1e-3 * torch.cat([torch.randn(8, w, generator=gen)] * 2, 1)
+    mine = slice(w, 2 * w)
+    pl = [Replicate(), Shard(1)]
+    dec, err = _compress_grads(
+        {"w": distribute_tensor(g, dm, pl, src_data_rank=None)},
+        {"w": distribute_tensor(e, dm, pl, src_data_rank=None)})
+    want_dec, want_err = _compress_grads({"w": g}, {"w": e})
+    per_shard = _compress_grads({"w": g[:, mine]}, {"w": e[:, mine]})[0]
+    print(w, tuple(dec["w"].placements) == tuple(pl),
+          tuple(err["w"].placements) == tuple(pl),
+          torch.equal(dec["w"].to_local(), want_dec["w"][:, mine]),
+          torch.equal(err["w"].to_local(), want_err["w"][:, mine]),
+          torch.equal(per_shard["w"], want_dec["w"][:, mine]))
 """
 
 
-def test_grad_compress_refuses_a_mesh():
-    """int8 gradient compression runs its blocks along each leaf's last
-    dim, which a mesh may split: over DTensor gradients it refuses with a
-    named error (in a process of its own: one default group a process)."""
+def test_grad_compress_over_a_mesh_takes_the_whole_leafs_blocks():
+    """int8 gradient compression of a leaf whose last dim the mesh cuts
+    below ``QBLOCK`` (pieces of 100) equals it on the whole leaf, bit for
+    bit, decoded gradient and residual alike, each at the gradient's
+    placements; blocking each rank's piece would differ.  Pieces of whole
+    blocks (``QBLOCK``) are taken as they lie and equal it too.  (In a
+    process of its own: one default group a process.)"""
     import os
     import subprocess
     import sys
@@ -141,4 +161,6 @@ def test_grad_compress_refuses_a_mesh():
     out = subprocess.run([sys.executable, "-c", COMPRESS_SCRIPT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "REFUSED grad_compress over a mesh of ranks" in out.stdout
+    rows = [line.split() for line in out.stdout.splitlines()]
+    assert rows == [["100", "True", "True", "True", "True", "False"],
+                    ["128", "True", "True", "True", "True", "True"]]

@@ -147,23 +147,31 @@ def test_flash_ref_keeps_the_split_names():
 
 
 def test_split_keeps_nan_in_the_low_part():
-    """The bare rounding carries the canonical NaN (0x7fffffff, what 0 * inf
-    gives on the card) into the sign bit: hi reads -0.  The low part, x - hi
-    truncated, is NaN whatever hi became, so a NaN in an operand reaches its
-    row (or column) of the split product, as in the plain product; an
-    infinity rounds to itself, and the largest finite values round up to it,
-    as ``cvt.rna.tf32.f32`` rounds them."""
+    """The rounding may turn a NaN into 0 or an infinity (-1 and
+    0x7F800FFF here) or leave it a NaN (the canonical 0x7FFFFFFF, what
+    0 * inf gives on the card).  The low part, x - hi truncated, is NaN
+    whatever hi became, so a NaN in an operand reaches its row (or column)
+    of the split product, as in the plain product.
+
+    The largest finite values, whose rounding would carry into the exponent
+    (every pattern from 0x7F7FE000 to 0x7F7FFFFF, both signs), keep hi and
+    lo finite, so a row holding FLT_MAX gives the plain product's finite
+    value (ROADMAP C1).  An infinity rounds to itself and its lo is
+    inf - inf: its row of the split product is NaN where the plain product
+    is an infinity, the deliberate difference ROADMAP names ("an infinite
+    operand of a split-TF32 route gives NaN where the plain f32 product
+    gives +-inf")."""
     bits = torch.tensor([0x7FFFFFFF, -1, 0x7F800FFF, 0x7FC00000, 0x7F800000,
                          -0x800000, 0x7F7FFFFF], dtype=torch.int32)
     x = bits.view(torch.float32)
     hi = tf32.tf32_round(x)
-    assert hi[0].view(torch.int32).item() == -0x80000000     # -0
+    assert torch.isnan(hi[0]) and hi[1] == 0
     assert hi[2] == float("inf")
     assert torch.isnan(tf32.tf32_lo(x[:4], hi[:4])).all()
     assert torch.equal(tf32.tf32_lo(x[:4], hi[:4]).view(torch.int32) & 0x1FFF,
                        torch.zeros(4, dtype=torch.int32))
     assert hi[4] == float("inf") and hi[5] == float("-inf")
-    assert hi[6] == float("inf")
+    assert hi[6].view(torch.int32).item() == 0x7F7FE000
     for nan in x[:4]:
         a = torch.ones(3, 8)
         a[1, 2] = nan
@@ -172,3 +180,29 @@ def test_split_keeps_nan_in_the_low_part():
         out = tf32.tf32_split_product(torch.ones(4, 8), a.T)
         assert torch.isnan(out[:, 1]).all()
         assert torch.isfinite(out[:, [0, 2]]).all()
+
+    top = torch.arange(0x7F7FE000, 0x7F800000, dtype=torch.int32)
+    big = torch.cat([top.view(torch.float32), -top.view(torch.float32)])
+    hi = tf32.tf32_round(big)
+    lo = tf32.tf32_lo(big, hi)
+    assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+    assert torch.equal(hi.abs().view(torch.int32),
+                       torch.cat([top & -0x2000] * 2).clamp(max=0x7F7FE000))
+    # below the cap the rounding is the bare sum's, bit for bit
+    low = torch.arange(0x7F7F0000, 0x7F7FF000, dtype=torch.int32)
+    assert torch.equal(tf32.tf32_round(low.view(torch.float32))
+                       .view(torch.int32), (low + 0x1000) & -0x2000)
+
+    fmax = torch.finfo(torch.float32).max
+    for v, finite in ((fmax, True), (-fmax, True), (float("inf"), False),
+                      (float("-inf"), False)):
+        a = torch.ones(3, 8)
+        a[1, 2] = v
+        b = torch.full((8, 4), 1e-30)
+        want, got = a @ b, tf32.tf32_split_product(a, b)
+        if finite:
+            assert torch.isfinite(want).all()
+            assert ((got - want).abs() / want.abs()).max().item() <= 1e-6
+        else:                       # the deliberate difference
+            assert torch.isinf(want[1]).all() and torch.isnan(got[1]).all()
+            assert torch.equal(got[[0, 2]], want[[0, 2]])

@@ -4,11 +4,11 @@
         new old old new [--peak] [--path olmo_f32]
 
 Each ``name=kernel[@file.cu][:-DA=1,-DB=2]`` is a version of
-``csrc/<kernel>.cu`` (``atom_matmul``, ``flash_attention`` or
-``flash_attention_bwd``), built by ``nvcc`` with the package's flags, the
-given ``-D`` flags and ``csrc/`` on the include path (a header beside
-``file.cu`` comes first, so a copied directory is a version of its headers
-too); the names after them are the order to run.  All versions build at
+``csrc/<kernel>.cu`` (``atom_matmul``, ``flash_attention``,
+``flash_attention_bwd`` or ``decode_attention``), built by ``nvcc`` with
+the package's flags, the given ``-D`` flags and ``csrc/`` on the include
+path (a header beside ``file.cu`` comes first, so a copied directory is a
+version of its headers too); the names after them are the order to run.  All versions build at
 once; each is then loaded in place of the package's library and run through
 ``chip_smoke``'s checks: ``atom_matmul`` the f32 cases (K up to 14336, both
 f32 routes, atoms bit-equal, tiles untouched) and its f32 headline
@@ -18,9 +18,17 @@ f32 routes, atoms bit-equal, tiles untouched) and its f32 headline
 its f32 headline; ``flash_attention_bwd`` the training path ``--path`` (a
 key of ``chip_smoke.BWD_PATH_SHAPES``: every check of the smoke, the delta
 pass and one atom of every tile timed as ``ms``, the dQ and dK/dV tiles
-apart as ``dq_ms`` / ``dkv_ms``).  Prints one JSON line a run (the
-version's registers and spills with it) and appends it to ``--out``
-(``reports/kernel_ab.jsonl``), then the card's name and power limit.
+apart as ``dq_ms`` / ``dkv_ms``); ``decode_attention`` the f32 cases (every
+split count, head_dim 64 / 128 / 256, G up to 20; 2e-5, atoms bit-equal)
+and its f32 headline at both ``DECODE_SHAPES`` (``serving``,
+``long_context``; at ``serving`` also with every length 0,
+``zero_lens_ms``), each version at the package's own split schedule and
+cluster fit (a version that ignores ``nsplit``, as the one-block-a-row
+kernel did, runs as it is), or with ``--fit own`` at its own library's fit
+(every version then answers the package's occupancy query).  Prints one
+JSON line a run (the version's registers and spills with it) and appends
+it to ``--out`` (``reports/kernel_ab.jsonl``), then the card's name and
+power limit.
 ``--peak`` also times ``tools/tf32_peak.cu``: the card's rate of
 ``mma.sync`` m16n8k8 TF32 at 4 to 32 warps an SM.  Runs on the GPU only; a
 diagnostic beside the port: the package does not import it.
@@ -58,6 +66,17 @@ FLASH_CASES = [dict(B=1, Sq=37, Sk=37, Hq=32, Hk=8, D=128),
                dict(B=1, Sq=300, Sk=300, Hq=56, Hk=8, D=128),
                dict(B=1, Sq=77, Sk=333, Hq=16, Hk=1, D=256, causal=False),
                dict(B=1, Sq=100, Sk=612, Hq=8, Hk=2, D=256, window=128)]
+DECODE_CASES = [dict(B=4, Hq=32, Hk=8, D=128, S=2048, lens=[2048, 513, 0, 64]),
+                dict(B=2, Hq=8, Hk=2, D=64, S=300, lens=[300, 17]),
+                dict(B=3, Hq=6, Hk=2, D=128, S=96, lens=[96, 1, 50]),
+                dict(B=3, Hq=16, Hk=1, D=256, S=2048, lens=[2048, 1, 0]),
+                dict(B=4, Hq=56, Hk=8, D=128, S=2048, lens=[2048, 700, 0, 65]),
+                dict(B=4, Hq=12, Hk=12, D=64, S=1500, lens=[1500] * 4),
+                dict(B=3, Hq=32, Hk=8, D=128, S=64, lens=[0, 63, 64]),
+                dict(B=4, Hq=32, Hk=8, D=128, S=150, lens=[127, 128, 129, 150]),
+                dict(B=4, Hq=8, Hk=2, D=64, S=300, lens=[0, 127, 129, 300]),
+                dict(B=2, Hq=40, Hk=2, D=128, S=1000, lens=[128, 1000]),
+                dict(B=4, Hq=16, Hk=1, D=256, S=300, lens=[0, 127, 129, 300])]
 
 
 def _matmul(torch, cs, dev, gen) -> dict:
@@ -91,6 +110,45 @@ def _flash(torch, cs, dev, gen) -> dict:
     return {"cases": cases, **{k: h[k] for k in (
         "ms", "library_ms", "plain_ms", "max_abs_err", "rel_err", "lse_err",
         "route")}}
+
+
+def _decode(torch, cs, dev, gen) -> dict:
+    cases = []
+    for c in DECODE_CASES:
+        err, plan = cs.check_decode(torch, dev, gen, dtype="float32", **c)
+        cases.append({**c, "max_abs_err": err, "took": plan})
+    from repro_torch.kernels.decode_attention import ops
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = {"cases": cases, "fit_f32_d128": ops.cluster_fit(dev, 128,
+                                                           torch.float32)}
+    for shape in ("serving", "long_context"):
+        h = cs.decode_headline(torch, dev, gen, flush, iters=30, shape=shape,
+                               dtype="float32")
+        out[shape] = {k: h[k] for k in (
+            "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err",
+            "err_limit", "dropped_split_err", "took")}
+    # the launch, prologue and merges alone: every length 0, no key loaded
+    B, Hq, Hk, D, S, _ = cs.DECODE_SHAPES["serving"][0]
+    q = torch.randn(B, Hq, D, device=dev)
+    kc = torch.randn(B, S, Hk, D, device=dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    o = torch.empty_like(q)
+    out["serving"]["zero_lens_ms"] = cs.time_ms(torch, lambda: (
+        ops.decode_attention_atom(q, kc, kc, zero, o, start=0,
+                                  num_rows=B * Hk)), iters=30, flush=flush)
+    return out
+
+
+def _pin_decode_fit(torch, dev) -> None:
+    """Every decode version runs at the package's split schedule: the
+    cluster fit its own library reads, once, for each head dim and dtype
+    (a version's library need not answer the query the package asks)."""
+    from repro_torch.kernels.decode_attention import ops
+    fits = {(D, dt): ops.cluster_fit(dev, D, dt) for D in (64, 128, 256)
+            for dt in (torch.float32, torch.bfloat16)}
+    ops.cluster_fit = lambda device, D, dtype=torch.bfloat16: fits[D, dtype]
+    ops.max_active_clusters = lambda D, n, dtype=torch.bfloat16: fits[
+        D, dtype][ops.SPLITS.index(n)]
 
 
 def _backward(torch, cs, dev, gen, path) -> dict:
@@ -148,6 +206,9 @@ def main(argv=None) -> int:
     ap.add_argument("--path", default="olmo_f32",
                     help="flash_attention_bwd's training path: a key of "
                          "chip_smoke.BWD_PATH_SHAPES")
+    ap.add_argument("--fit", choices=("package", "own"), default="package",
+                    help="decode_attention's cluster fit: the package "
+                         "library's for every version, or each version's")
     ap.add_argument("--out", default=str(ROOT / "reports" / "kernel_ab.jsonl"),
                     help="file the JSON lines are appended to")
     ap.add_argument("items", nargs="+",
@@ -170,6 +231,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.kernels import build
     from repro_torch.kernels.atom_matmul import ops as mm_ops
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -188,8 +250,12 @@ def main(argv=None) -> int:
         so.with_suffix(".log").write_text(log)
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log[-4000:]}")
+    if args.fit == "package" and any(v[0] == "decode_attention"
+                                     for v in versions.values()):
+        _pin_decode_fit(torch, dev)
     runs = {"atom_matmul": _matmul, "flash_attention": _flash,
-            "flash_attention_bwd": lambda *a: _backward(*a, args.path)}
+            "flash_attention_bwd": lambda *a: _backward(*a, args.path),
+            "decode_attention": _decode}
     gen = torch.Generator(device=dev)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     for name in order:
@@ -200,6 +266,9 @@ def main(argv=None) -> int:
             fl_ops._bwd_lib = None
         elif kernel == "flash_attention":
             fl_ops._lib = None
+        elif kernel == "decode_attention":
+            dec_ops._lib = None
+            dec_ops._fit.clear()
         else:
             mm_ops._lib = None
         gen.manual_seed(0)
@@ -212,7 +281,9 @@ def main(argv=None) -> int:
         build.library_path = lambda n, so=so: so
         try:
             res["ptxas"] = {k: v for k, v in build.ptxas_report(kernel)[
-                "kernels"].items() if "tf32" in k or "bwd" in k}
+                "kernels"].items()
+                if "tf32" in k or "bwd" in k or k.startswith("decode_attn")
+                or k.startswith("decode_split_f32")}
         finally:
             build.library_path = orig
         print(json.dumps(res), flush=True)
