@@ -339,7 +339,92 @@ def check_decode(torch, dev, gen, *, B, Hq, Hk, D, S, dtype, lens,
     if not (torch.equal(og[inside], gg[inside])
             and bool((og[~inside] == 7.0).all())):
         fail("decode_attention_atom wrote outside its rows")
-    return err, plan
+    return err, plan, check_decode_lse(torch, ops, ref, q, kc, vc, lens, what)
+
+
+def check_decode_lse(torch, ops, ref, q, kc, vc, lens, what) -> dict:
+    """K1's lse output on the case's inputs with its first row emptied
+    (length 0): within ``LSE_TOL`` of the plain version's, ``-inf`` on the
+    empty row; the output with the lse bit-equal to the output without it;
+    a bf16 call's f32 output (a partial a combine rounds once) rounding to
+    its bf16 output bit for bit; atoms in reversed order writing the same
+    lse.  Returns the readings."""
+    lens_t = torch.tensor([0] + list(lens[1:]), dtype=torch.int32,
+                          device=q.device)
+    B, Hq, _ = q.shape
+    lse = torch.full((B, Hq), 7.0, device=q.device)
+    got = ops.decode_attention(q, kc, vc, lens_t, lse=lse)
+    want, want_lse = ref.decode_attention_ref(q, kc, vc, lens_t,
+                                              return_lse=True)
+    empty = lens_t == 0
+    lse_err = ((lse[~empty] - want_lse[~empty]).abs().max().item()
+               if bool((~empty).any()) else 0.0)
+    if not (lse_err <= LSE_TOL and bool(torch.isneginf(lse[empty]).all())):
+        fail(f"{what}: lse err {lse_err} > {LSE_TOL}, or a row of length 0 "
+             f"without -inf")
+    if not (_same(torch, got, ops.decode_attention(q, kc, vc, lens_t))
+            and bool((got[empty] == 0).all())):
+        fail(f"{what}: the output with the lse differs from the output "
+             f"without it")
+    wide = ops.decode_attention(q, kc, vc, lens_t, out_dtype=torch.float32)
+    if not (wide.dtype == torch.float32
+            and _same(torch, wide.to(q.dtype), got)):
+        fail(f"{what}: the f32 output does not round to the output")
+    R = B * kc.shape[2]
+    lse_r = torch.full_like(lse, 7.0)
+    ops.decode_attention(q, kc, vc, lens_t, n_atoms=R,
+                         order=tuple(reversed(range(R))), lse=lse_r)
+    if not _same(torch, lse_r, lse):
+        fail(f"{what}: atoms write another lse")
+    return {"lse_err": lse_err, "lse_limit": LSE_TOL,
+            "lse_empty_row": "-inf"}
+
+
+def decode_shards(torch, dev, gen, flush, iters, dtype) -> dict:
+    """Decode over a sequence-sharded cache on one card, as
+    ``kernels/sharded.py`` runs it across ranks: the serving headline's
+    shape cut into 4 and 16 sequence shards, each shard's partial by K1
+    (f32 output and lse, lengths clamped to the shard), combined by
+    ``merge.merge_partials``; against one K1 call over the whole cache
+    (``TOL``), both timed (L2 flushed before each)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.merge import merge_partials
+    B, Hq, Hk, D, S, lens = DECODE_SHAPES["serving"][flush is None]
+    dt = getattr(torch, dtype)
+    q = _randn(torch, gen, (B, Hq, D), dt, dev)
+    kc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
+    vc = _randn(torch, gen, (B, S, Hk, D), dt, dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    whole = ops.decode_attention(q, kc, vc, lens_t)
+    o = torch.empty_like(q)
+    out = {"shape": {"B": B, "Hq": Hq, "Hk": Hk, "D": D, "S": S,
+                     "lens": lens}, "dtype": dtype,
+           "whole_ms": time_ms(torch, lambda: ops.decode_attention_atom(
+               q, kc, vc, lens_t, o, start=0, num_rows=B * Hk),
+               iters=iters, flush=flush)}
+    for n in (4, 16):
+        if S % n:
+            continue
+        m = S // n
+        parts = torch.empty((n, B, Hq, D), device=dev)
+        lses = torch.empty((n, B, Hq), device=dev)
+
+        def sharded():
+            for r in range(n):
+                ops.decode_attention_atom(
+                    q, kc[:, r * m:(r + 1) * m], vc[:, r * m:(r + 1) * m],
+                    (lens_t - r * m).clamp(0, m), parts[r], start=0,
+                    num_rows=B * Hk, lse=lses[r])
+            return merge_partials(parts, lses, out_dtype=dt)
+        got, _ = sharded()
+        err = (got.float() - whole.float()).abs().max().item()
+        if not err <= TOL[("decode", dtype)]:
+            fail(f"decode_shards {dtype}, {n} shards: err {err} > "
+                 f"{TOL[('decode', dtype)]}")
+        out[f"shards_{n}"] = {
+            "max_abs_err": err, "err_limit": TOL[("decode", dtype)],
+            "ms": time_ms(torch, sharded, iters=iters, flush=flush)}
+    return out
 
 
 def check_decode_refuses(torch, dev, gen, *, B, Hq, Hk, D, S, lens):
@@ -615,6 +700,11 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving",
     if not _same(torch, o, got):
         fail(f"decode_attention_atom at the {shape} shape differs from the "
              f"entry point")
+    # the same launch writing each query row's lse too
+    lse = torch.empty((B, Hq), device=dev)
+    lse_ms = time_ms(torch, lambda: ops.decode_attention_atom(
+        q, kc, vc, lens_t, o, start=0, num_rows=B * Hk, lse=lse),
+        iters=iters, flush=flush)
     plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, lens_t),
                        iters=iters, flush=flush)
     mask = (torch.arange(S, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
@@ -634,7 +724,7 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving",
     return {"shape": {"B": B, "Hq": Hq, "Hk": Hk, "D": D, "S": S, "lens": lens},
             "took": plan, "max_active_clusters": clusters,
             "dtype": dtype, "max_abs_err": err, "err_limit": limit,
-            "dropped_split_err": dropped, "ms": ms,
+            "dropped_split_err": dropped, "ms": ms, "lse_ms": lse_ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "enqueue_ms": host_ms,
@@ -1218,10 +1308,10 @@ def kernels_phase(torch, dev, real: bool):
               dict(M=70, N=300, K=24, dtype="bfloat16", bm=128, bn=256,
                    strided=True)]
     for c in dec:
-        err, plan = check_decode(torch, dev, gen, **c)
+        err, plan, lse = check_decode(torch, dev, gen, **c)
         cases.append({"kernel": "decode_attention", **c, "took": plan,
                       "max_abs_err": err,
-                      "err_limit": TOL[("decode", c["dtype"])]})
+                      "err_limit": TOL[("decode", c["dtype"])], **lse})
     took = {(c["took"]["route"], c["took"]["nsplit"]) for c in cases}
     if real and not {(r, n) for r in ("split", "split_f32")
                      for n in (1, 2, 4, 8)} <= took:
@@ -1256,6 +1346,10 @@ def kernels_phase(torch, dev, real: bool):
     k1_f32_long = decode_headline(torch, dev, gen, flush,
                                   iters=30 if real else 1,
                                   shape="long_context", dtype="float32")
+    # decode over a sequence-sharded cache, the shards on one card
+    shards = {dt: decode_shards(torch, dev, gen, flush,
+                                iters=30 if real else 1, dtype=dt)
+              for dt in ("bfloat16", "float32")}
     k3_f32 = matmul_headline(torch, dev, gen, flush, iters=10 if real else 1,
                              real=real, dtype="float32")
     k2 = flash_headline(torch, dev, gen, iters=20 if real else 1, real=real)
@@ -1293,6 +1387,7 @@ def kernels_phase(torch, dev, real: bool):
          decode_attention_llava_g7=k1_llava,
          decode_attention_float32=k1_f32,
          decode_attention_float32_long_context=k1_f32_long,
+         decode_shards=shards,
          flash_attention=k2,
          flash_attention_window_d256=k2_window,
          flash_attention_float32=k2_f32,
@@ -1304,6 +1399,15 @@ def kernels_phase(torch, dev, real: bool):
                   "rows / tiles outside an atom untouched",
                   "the route (and decode's split count) each case took",
                   "decode: key pitches the kernels cannot address raise",
+                  "decode: at every case (both routes, every split count) "
+                  "the lse within 1e-4 of the plain version's with the "
+                  "first row emptied (-inf there), the output bit-equal "
+                  "with and without it, a bf16 call's f32 output rounding "
+                  "to its output, atoms writing the same lse",
+                  "decode_shards: the serving shape in 4 and 16 sequence "
+                  "shards, K1 partials with the lse merged by "
+                  "merge_partials, against one K1 call (2e-5 f32, 3e-2 "
+                  "bf16)",
                   "flash bf16: each query row within 2^-6 of its max|output|"
                   " (f32: max abs error)",
                   "flash f32 (split TF32): max abs error within 1e-5 of "
@@ -1460,14 +1564,14 @@ def planted_faults(torch, kernel: str):
             return True
         return False
 
-    def decode(q, kc, vc, lens, o, *, start, num_rows):
+    def decode(q, kc, vc, lens, o, *, start, num_rows, lse=None):
         if not hit(kc.shape[1]):
             return saved[0](q, kc, vc, lens, o, start=start,
-                            num_rows=num_rows)
+                            num_rows=num_rows, lse=lse)
         cut = (lens - KV_BLOCK).clamp_min(1).to(torch.int32).contiguous()
         return saved[0](q, kc[:, KV_BLOCK:].contiguous(),
                         vc[:, KV_BLOCK:].contiguous(), cut, o, start=start,
-                        num_rows=num_rows)
+                        num_rows=num_rows, lse=lse)
 
     def flash(q, k, v, o, *, start, num_tiles, causal=True,
               block_q=f_ops.BLOCK_Q, window=0):
@@ -1533,8 +1637,8 @@ def launch_checks(torch, worst):
             fail(f"{kernel} on the path reads {err} against its plain "
                  f"version on the same inputs (limit {limit})")
 
-    def decode(q, kc, vc, lens, o, *, start, num_rows):
-        saved[0](q, kc, vc, lens, o, start=start, num_rows=num_rows)
+    def decode(q, kc, vc, lens, o, *, start, num_rows, lse=None):
+        saved[0](q, kc, vc, lens, o, start=start, num_rows=num_rows, lse=lse)
         if start == 0 and num_rows == q.shape[0] * kc.shape[2]:
             want = d_ref.decode_attention_ref(q, kc, vc, lens).float()
             err = (o.float() - want).abs().max().item()
@@ -2625,7 +2729,13 @@ def mesh_phase(torch, dev, run: dict, *, real: bool) -> dict:
 # the dry-run: a step traced on meta tensors over a fake process group
 # ---------------------------------------------------------------------------
 
-DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("llama3-8b", "decode_32k"))
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("llama3-8b", "decode_32k"),
+                ("qwen1.5-32b", "decode_32k"))
+# a decode over a sequence-sharded cache moves no cache (kernels/sharded.py):
+# the collective bytes a device of these cells must stay below
+DRYRUN_COLLECTIVE_LIMITS = {("llama3-8b", "decode_32k"): ("total", 0.1e9),
+                            ("qwen1.5-32b", "decode_32k"): ("all-gather",
+                                                            20e9)}
 # the train phase's own shape on one rank, in a process of its own (one
 # process holds one default group)
 DRYRUN_OWN = """
@@ -2685,6 +2795,11 @@ def dryrun_phase(run: dict, *, real: bool) -> None:
             res = json.load(f)
         if res["status"] != "ok":
             fail(f"dryrun: {arch} x {shape}: {res.get('error')}")
+        kind, limit = DRYRUN_COLLECTIVE_LIMITS.get((arch, shape),
+                                                   ("total", math.inf))
+        if not res["collectives"].get(kind, 0.0) < limit:
+            fail(f"dryrun: {arch} x {shape} moves {res['collectives']} "
+                 f"bytes a device, {kind} not below {limit}")
         out[f"{arch}__{shape}"] = _dryrun_row(res)
     tc = run["tc"]
     own = dict(real=real, batch=run["batch"], seq=run["seq"],
@@ -2906,8 +3021,9 @@ def lithos_decode(torch, dev, real: bool, flush, spec):
     rows, launches = [], 0
     for e in table:
         B, S = e.batch, e.kv_len
-        err, plan = check_decode(torch, dev, gen, B=B, Hq=Hq, Hk=Hk, D=D,
-                                 S=S, dtype="bfloat16", lens=[S] * B)
+        err, plan, _ = check_decode(torch, dev, gen, B=B, Hq=Hq, Hk=Hk,
+                                    D=D, S=S, dtype="bfloat16",
+                                    lens=[S] * B)
         if real and B * Hk * plan["nsplit"] != e.work.n_blocks:
             fail(f"lithos_decode B={B} S={S}: the kernel runs "
                  f"{B * Hk} x {plan['nsplit']} thread blocks, the cost model "

@@ -86,6 +86,13 @@
 //   * the warps' partials are merged in warp order, then the splits' in
 //     split order over distributed shared memory, l == 0 -> 1: the
 //     arithmetic of decode_attention_split_ref.
+// Both routes optionally write each query row's lse, m + log(l) in f32
+// (-inf for a row of length 0), from the split merge that already holds
+// the row's m and l: the CTA that stores a row's first columns stores it.
+// With it the bf16 route may write an f32 output.  A caller that splits a
+// cache into parts (sequence shards over ranks) combines their (o, lse)
+// rounding once (merge.py).  A null lse pointer writes none: the launch
+// and its arithmetic are the same.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -99,7 +106,10 @@ struct Strides {
   long long k_b, k_s, k_h;
   long long v_b, v_s, v_h;
   long long o_b, o_h;
+  long long lse_b, lse_h;
 };
+
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bfloat16, split-KV over a thread block cluster, fed by TMA (the header
@@ -225,10 +235,14 @@ __device__ __forceinline__ void merge_warps(const float* ring, int slot,
 // `split` merges columns [split*cw, (split+1)*cw) of the pass's ng heads
 // over the splits, four columns a consumer thread: f_j = 2^(m_j - m), O =
 // sum_j f_j O_j / sum_j f_j l_j in split order, and hands each four
-// columns to store(row, col, O).
+// columns to store(row, col, O).  With `lse` (the pass's first head's, rows
+// lse_h apart) the thread of a row's column 0 also writes its lse, (m +
+// log2(sum_j f_j l_j)) ln 2 in the base-2 domain's units, -inf without a
+// valid key.
 template <int D, int ROWS, int LD, class Store>
 __device__ __forceinline__ void merge_splits(const float* part, int ng,
                                              int split, int nsplit,
+                                             float* lse, long long lse_h,
                                              Store store) {
   const int cw4 = D / nsplit / 4;   // 4-column groups this CTA merges
   for (int idx = threadIdx.x; idx < ng * cw4; idx += SPLIT_CONSUMERS * 32) {
@@ -262,21 +276,25 @@ __device__ __forceinline__ void merge_splits(const float* part, int ng,
         num.w += f * av.w;
       }
     }
+    if (lse != nullptr && col == 0)
+      lse[row * lse_h] = den == 0.f ? -INFINITY : (m_ref + log2f(den)) * LN2;
     if (den == 0.f) den = 1.f;   // no valid key: zeros, as the reference
     store(row, col,
           make_float4(num.x / den, num.y / den, num.z / den, num.w / den));
   }
 }
 
-template <int D>
+// OutT: __nv_bfloat16, or float for a partial that a combine rounds once
+template <int D, class OutT>
 __global__ void __launch_bounds__(SPLIT_THREADS, split_ctas<D>())
 decode_split_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __nv_bfloat16* __restrict__ q,
-                         const int* __restrict__ lens,
-                         __nv_bfloat16* __restrict__ o, int start, int Hk,
-                         int G, int S, int chunk, long long q_b, long long q_h,
-                         long long o_b, long long o_h, float scale_log2e) {
+                         const int* __restrict__ lens, OutT* __restrict__ o,
+                         float* __restrict__ lse, int start, int Hk, int G,
+                         int S, int chunk, long long q_b, long long q_h,
+                         long long o_b, long long o_h, long long lse_b,
+                         long long lse_h, float scale_log2e) {
   using T = SplitTile<D>;
   constexpr int KS = D / 16;     // k-steps of Q K^T
   constexpr int DT = D / 8;      // 8-column tiles of the output
@@ -481,10 +499,15 @@ decode_split_bf16_kernel(const __grid_constant__ CUtensorMap map_k,
     cluster_sync();   // every CTA's partial is complete
     if (warp < SPLIT_CONSUMERS)
       merge_splits<D, QROWS, T::LDP>(
-          part, ng, split, nsplit, [&](int row, int col, float4 x) {
-            *reinterpret_cast<uint2*>(o + b * o_b +
-                                      (hk * G + g0 + row) * o_h + col) =
-                make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+          part, ng, split, nsplit,
+          lse ? lse + b * lse_b + (hk * G + g0) * lse_h : nullptr, lse_h,
+          [&](int row, int col, float4 x) {
+            OutT* dst = o + b * o_b + (hk * G + g0 + row) * o_h + col;
+            if constexpr (sizeof(OutT) == 4)
+              *reinterpret_cast<float4*>(dst) = x;
+            else
+              *reinterpret_cast<uint2*>(dst) =
+                  make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
           });
     // no CTA overwrites its partial (next pass) or exits while a peer may
     // still read it
@@ -511,11 +534,11 @@ inline cudaLaunchConfig_t cluster_config(int nsplit, int rows, int smem,
   return cfg;
 }
 
-template <int D>
+template <int D, class OutT>
 int launch_split(const void* q, const void* k, const void* v,
-                 const void* lens, void* o, int start, int num_rows, int B,
-                 int Hk, int G, int S, int nsplit, const Strides& st,
-                 cudaStream_t stream) {
+                 const void* lens, void* o, void* lse, int start,
+                 int num_rows, int B, int Hk, int G, int S, int nsplit,
+                 const Strides& st, cudaStream_t stream) {
   using T = SplitTile<D>;
   if (num_rows > 65535) return -1;   // grid y
   // [B, S, Hk, D] as 4-D maps {D, Hk, S, B}: boxes of 64 (D) x 1 x 64 keys
@@ -528,7 +551,7 @@ int launch_split(const void* q, const void* k, const void* v,
   const uint64_t vs[3] = {st.v_h * esz, st.v_s * esz, st.v_b * esz};
   if (int e = encode_bf16_map(&map_v, v, 4, dims, vs, box)) return e;
 
-  auto kernel = decode_split_bf16_kernel<D>;
+  auto kernel = decode_split_bf16_kernel<D, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -540,19 +563,20 @@ int launch_split(const void* q, const void* k, const void* v,
   err = cudaLaunchKernelEx(&cfg, kernel, map_k, map_v,
                            static_cast<const __nv_bfloat16*>(q),
                            static_cast<const int*>(lens),
-                           static_cast<__nv_bfloat16*>(o), start, Hk, G, S,
-                           chunk, st.q_b, st.q_h, st.o_b, st.o_h, scale_log2e);
+                           static_cast<OutT*>(o), static_cast<float*>(lse),
+                           start, Hk, G, S, chunk, st.q_b, st.q_h, st.o_b,
+                           st.o_h, st.lse_b, st.lse_h, scale_log2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// clusters of `nsplit` CTAs of the split kernel for head dim D that the
-// current GPU runs at once, or minus a CUDA error code (-1: a D the kernel
-// does not take)
+// clusters of `nsplit` CTAs of the split kernel for head dim D (its bf16
+// output's instance) that the current GPU runs at once, or minus a CUDA
+// error code (-1: a D the kernel does not take)
 template <int D>
 int max_active_clusters(int nsplit) {
   using T = SplitTile<D>;
-  auto kernel = decode_split_bf16_kernel<D>;
+  auto kernel = decode_split_bf16_kernel<D, __nv_bfloat16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return -(int)err;
@@ -626,9 +650,10 @@ decode_split_f32_kernel(const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
                         const float* __restrict__ q,
                         const int* __restrict__ lens, float* __restrict__ o,
-                        int start, int Hk, int G, int S, int chunk,
-                        long long q_b, long long q_h, long long o_b,
-                        long long o_h, float scale_log2e) {
+                        float* __restrict__ lse, int start, int Hk, int G,
+                        int S, int chunk, long long q_b, long long q_h,
+                        long long o_b, long long o_h, long long lse_b,
+                        long long lse_h, float scale_log2e) {
   using T = F32Tile<D, GC>;
   using M = F32Smem<D, GC>;
   constexpr int CPL = T::CPL;
@@ -846,7 +871,9 @@ decode_split_f32_kernel(const __grid_constant__ CUtensorMap map_k,
     cluster_sync();   // every CTA's partial is complete
     if (warp < SPLIT_CONSUMERS)
       merge_splits<D, GC, D>(
-          part, ng, split, nsplit, [&](int row, int col, float4 x) {
+          part, ng, split, nsplit,
+          lse ? lse + b * lse_b + (hk * G + g0) * lse_h : nullptr, lse_h,
+          [&](int row, int col, float4 x) {
             *reinterpret_cast<float4*>(o + b * o_b +
                                        (hk * G + g0 + row) * o_h + col) = x;
           });
@@ -858,9 +885,9 @@ decode_split_f32_kernel(const __grid_constant__ CUtensorMap map_k,
 
 template <int D, int GC>
 int launch_split_f32(const void* q, const void* k, const void* v,
-                     const void* lens, void* o, int start, int num_rows, int B,
-                     int Hk, int G, int S, int nsplit, const Strides& st,
-                     cudaStream_t stream) {
+                     const void* lens, void* o, void* lse, int start,
+                     int num_rows, int B, int Hk, int G, int S, int nsplit,
+                     const Strides& st, cudaStream_t stream) {
   using T = F32Tile<D, GC>;
   using M = F32Smem<D, GC>;
   if (num_rows > 65535) return -1;   // grid y
@@ -890,9 +917,10 @@ int launch_split_f32(const void* q, const void* k, const void* v,
   err = cudaLaunchKernelEx(&cfg, kernel, map_k, map_v,
                            static_cast<const float*>(q),
                            static_cast<const int*>(lens),
-                           static_cast<float*>(o), start, Hk, G, S,
-                           kv_split_chunk(S, nsplit), st.q_b, st.q_h, st.o_b,
-                           st.o_h, scale_log2e);
+                           static_cast<float*>(o), static_cast<float*>(lse),
+                           start, Hk, G, S, kv_split_chunk(S, nsplit), st.q_b,
+                           st.q_h, st.o_b, st.o_h, st.lse_b, st.lse_h,
+                           scale_log2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -901,11 +929,12 @@ int launch_split_f32(const void* q, const void* k, const void* v,
 // 8 above (RecurrentGemma's MQA: G = 16)
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* lens,
-               void* o, int start, int num_rows, int B, int Hk, int G, int S,
-               int nsplit, const Strides& st, cudaStream_t stream) {
+               void* o, void* lse, int start, int num_rows, int B, int Hk,
+               int G, int S, int nsplit, const Strides& st,
+               cudaStream_t stream) {
 #define F32_GC(GC)                                                       \
-  launch_split_f32<D, GC>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, \
-                          nsplit, st, stream)
+  launch_split_f32<D, GC>(q, k, v, lens, o, lse, start, num_rows, B, Hk, \
+                          G, S, nsplit, st, stream)
   return G == 1 ? F32_GC(1) : G == 2 ? F32_GC(2) : G <= 4 ? F32_GC(4)
                                                           : F32_GC(8);
 #undef F32_GC
@@ -960,37 +989,46 @@ extern "C" int decode_attention_max_active_clusters(int D, int dtype,
 }
 
 // Rows [start, start+num_rows) of the R_total = B*Hk rows of decode
-// attention, written in place into o.  q, o: [B,Hq,D] (strides in elements,
-// last stride 1); k, v: [B,S,Hk,D]; lens: [B] int32.  dtype: 0 = float32,
-// 1 = bfloat16.  route: 0 = the f32 split kernel, 1 = the bf16 split kernel,
-// each over clusters of nsplit CTAs (1, 2, 4 or 8: the wrapper passes
-// kv_split's for the whole call and the kernel's cluster fit).  Returns the
-// CUDA error code of the launch (0 = success), -1 for a shape or route the
-// kernel does not take, or -2 if a tensor map cannot be encoded.
+// attention, written in place into o and, unless lse is null, lse.  q, o:
+// [B,Hq,D] (strides in elements, last stride 1); lse: [B,Hq] float32; k, v:
+// [B,S,Hk,D]; lens: [B] int32.  dtype (q and the caches) and out_dtype (o):
+// 0 = float32, 1 = bfloat16; a bfloat16 call may write a float32 o.  route:
+// 0 = the f32 split kernel, 1 = the bf16 split kernel, each over clusters of
+// nsplit CTAs (1, 2, 4 or 8: the wrapper passes kv_split's for the whole
+// call and the kernel's cluster fit).  Returns the CUDA error code of the
+// launch (0 = success), -1 for a shape, route or output type the kernel does
+// not take, or -2 if a tensor map cannot be encoded.
 extern "C" int decode_attention_atom(
     const void* q, const void* k, const void* v, const void* lens, void* o,
-    int start, int num_rows, int R_total, int Hk, int G, int S, int D,
-    int dtype, int route, int nsplit,
+    void* lse, int start, int num_rows, int R_total, int Hk, int G, int S,
+    int D, int dtype, int route, int nsplit, int out_dtype,
     long long q_b, long long q_h, long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h, long long o_b, long long o_h,
-    void* stream) {
+    long long lse_b, long long lse_h, void* stream) {
   if (num_rows <= 0) return 0;
   if (Hk <= 0 || R_total % Hk || start < 0 || start + num_rows > R_total ||
       (D != 64 && D != 128 && D != 256) || nsplit < 1 ||
-      nsplit > MAX_SPLIT || (nsplit & (nsplit - 1)) || dtype != route)
+      nsplit > MAX_SPLIT || (nsplit & (nsplit - 1)) || dtype != route ||
+      (out_dtype != dtype && out_dtype != 0))
     return -1;
-  const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h};
+  const Strides st{q_b, q_h, k_b, k_s, k_h, v_b,   v_s,
+                   v_h, o_b, o_h, lse_b, lse_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = R_total / Hk;
-#define DECODE(FN, DIM) \
-  FN<DIM>(q, k, v, lens, o, start, num_rows, B, Hk, G, S, nsplit, st, s)
+#define DECODE(FN, ...) \
+  FN<__VA_ARGS__>(q, k, v, lens, o, lse, start, num_rows, B, Hk, G, S, \
+                  nsplit, st, s)
   if (dtype == 0)
     return D == 64 ? DECODE(launch_f32, 64) : D == 128 ? DECODE(launch_f32, 128)
                                                        : DECODE(launch_f32, 256);
+  if (dtype == 1 && out_dtype == 1)
+    return D == 64 ? DECODE(launch_split, 64, __nv_bfloat16)
+                   : D == 128 ? DECODE(launch_split, 128, __nv_bfloat16)
+                              : DECODE(launch_split, 256, __nv_bfloat16);
   if (dtype == 1)
-    return D == 64 ? DECODE(launch_split, 64)
-                   : D == 128 ? DECODE(launch_split, 128)
-                              : DECODE(launch_split, 256);
+    return D == 64 ? DECODE(launch_split, 64, float)
+                   : D == 128 ? DECODE(launch_split, 128, float)
+                              : DECODE(launch_split, 256, float);
 #undef DECODE
   return -1;
 }

@@ -14,6 +14,12 @@ mirrors the C side's schedule, checked when the library loads, over the
 cluster occupancy of the dtype's kernel that ``cluster_fit`` reads.  Both
 load through TMA, so caches whose strides are not multiples of 8 elements
 raise.
+
+Optionally a call also writes each query row's lse (``m + log(l)``, f32
+[B,Hq], ``-inf`` for a row of length 0) and gives a bfloat16 call an f32
+output: the partial of one part of a cache, which ``merge.merge_partials``
+combines with the others' rounding once (``kernels/sharded.py``'s decode
+over a sequence-sharded cache).
 """
 from __future__ import annotations
 
@@ -76,8 +82,8 @@ def _library():
         lib.decode_attention_max_active_clusters.argtypes = [ctypes.c_int] * 3
         fn = lib.decode_attention_atom
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                       + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -108,7 +114,7 @@ def cluster_fit(device, head_dim: int,
     return _fit[key]
 
 
-def _check(q, k_cache, v_cache, lens, o):
+def _check(q, k_cache, v_cache, lens, o, lse=None):
     B, Hq, D = q.shape
     S, Hk = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape != (B, S, Hk, D) or v_cache.shape != k_cache.shape:
@@ -119,10 +125,16 @@ def _check(q, k_cache, v_cache, lens, o):
     if o.shape != q.shape or lens.shape != (B,):
         raise ValueError(f"o {tuple(o.shape)} / lens {tuple(lens.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if not (q.dtype == k_cache.dtype == v_cache.dtype == o.dtype):
-        raise TypeError("q, caches and o must share one dtype")
+    if not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise TypeError("q and the caches must share one dtype")
+    if o.dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"o is {o.dtype}: q's dtype or float32")
+    if lse is not None and (lse.shape != (B, Hq)
+                            or lse.dtype != torch.float32):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: float32 "
+                         f"[{B}, {Hq}]")
     if not (q.device == k_cache.device == v_cache.device == lens.device
-            == o.device):
+            == o.device) or (lse is not None and lse.device != q.device):
         raise ValueError("all tensors must lie on one device")
 
 
@@ -141,11 +153,12 @@ def plan(q, k_cache, v_cache) -> dict:
 
 
 def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
-                          num_rows: int):
+                          num_rows: int, lse=None):
     """One atom: rows ``[start, start+num_rows)`` of ``R = B*Hk``, written in
-    place into the running output ``o`` [B,Hq,D].  Returns ``o``."""
+    place into the running output ``o`` [B,Hq,D] (q's dtype or float32) and,
+    if given, the lse [B,Hq] (float32).  Returns ``o``."""
     global launches
-    _check(q, k_cache, v_cache, lens, o)
+    _check(q, k_cache, v_cache, lens, o, lse)
     B, Hq, D = q.shape
     S, Hk = k_cache.shape[1], k_cache.shape[2]
     if not (0 <= start and 0 <= num_rows and start + num_rows <= B * Hk):
@@ -153,7 +166,8 @@ def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
                          f"[0, {B * Hk})")
     if q.device.type == "cpu":
         return decode_attention_atom_ref(q, k_cache, v_cache, lens, o,
-                                         start=start, num_rows=num_rows)
+                                         start=start, num_rows=num_rows,
+                                         lse=lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode attention has a CUDA kernel and a CPU "
                            f"version; no path for device {q.device}")
@@ -166,13 +180,15 @@ def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
     with torch.cuda.device(q.device):
         err = _library().decode_attention_atom(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), o.data_ptr(), start, num_rows, B * Hk, Hk,
-            Hq // Hk, S, D, build.DTYPE_CODES[str(q.dtype)],
-            ROUTES[p["route"]], p["nsplit"],
+            lens.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None, start, num_rows,
+            B * Hk, Hk, Hq // Hk, S, D, build.DTYPE_CODES[str(q.dtype)],
+            ROUTES[p["route"]], p["nsplit"], build.DTYPE_CODES[str(o.dtype)],
             q.stride(0), q.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             o.stride(0), o.stride(1),
+            *(lse.stride() if lse is not None else (0, 0)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_atom launch failed: CUDA error "
@@ -183,20 +199,24 @@ def decode_attention_atom(q, k_cache, v_cache, lens, o, *, start: int,
 
 
 def decode_attention(q, k_cache, v_cache, lens, *, n_atoms: int = 1,
-                     order: Sequence[int] = ()):
+                     order: Sequence[int] = (), lse=None, out_dtype=None):
     """q [B,Hq,D] against caches [B,S,Hk,D], row ``b`` attending to its first
     ``lens[b]`` keys (clamped to [0, S]; length 0 gives zeros).  ``order``
-    permutes the execution of the atoms; the result does not depend on it."""
+    permutes the execution of the atoms; the result does not depend on it.
+    ``lse`` (float32 [B,Hq]), if given, receives each query row's lse
+    (length 0: ``-inf``); ``out_dtype`` is q's dtype (default) or
+    float32."""
     B, _, _ = q.shape
     Hk = k_cache.shape[2]
     lens = lens.to(torch.int32)
+    out_dtype = out_dtype or q.dtype
     if q.device.type == "meta" and cost.counting():
-        o = torch.empty(q.shape, dtype=q.dtype, device="meta")
-        _check(q, k_cache, v_cache, lens, o)
-        cost.charge_decode(q, k_cache, v_cache)
+        o = torch.empty(q.shape, dtype=out_dtype, device="meta")
+        _check(q, k_cache, v_cache, lens, o, lse)
+        cost.charge_decode(q, k_cache, v_cache, o, lse)
         return o
-    o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.zeros(q.shape, dtype=out_dtype, device=q.device)
     for start, ln in schedule(B * Hk, n_atoms, order):
         decode_attention_atom(q, k_cache, v_cache, lens, o, start=start,
-                              num_rows=ln)
+                              num_rows=ln, lse=lse)
     return o

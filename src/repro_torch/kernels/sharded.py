@@ -4,13 +4,23 @@ on its own shard.
 Attention is exact on a shard that holds whole rows of the batch and whole
 heads: ``local_attention`` redistributes q to batch over the data axes and
 heads over ``model`` (``models/sharding.act_spec``, axes that do not divide
-dropped), and k / v to the same batch split, every key on every rank (a
-sequence-sharded KV cache is gathered).  Their heads shard over
+dropped), and k / v to the same batch split.  Their heads shard over
 ``model`` where q's do and the kv heads divide; otherwise they replicate
 (GQA: 8 kv heads on a 16-way axis, or 1 kv head), and each rank hands the
 kernel the kv heads its local q heads read (q head ``h`` reads kv head
 ``h // G``).  The kv gradient of such a rank covers only those heads, so it
 is a partial sum over ``model``.  A sequence-sharded q is refused.
+
+Decode (``head_dim_q=1``) against a KV cache whose sequence is split over a
+mesh axis (``launch/shardings.cache_shardings``: kv heads that do not divide
+``model``) leaves the cache where it is, as the reference's GSPMD does: q
+is laid out whole on that axis, each rank attends to its own keys with
+its lengths clamped to its part of the sequence, and the partials (f32
+output and lse, ``fn(..., lse=, out_dtype=)``, decode attention's keywords)
+are combined across the axis by ``merge.merge_partials`` over two
+all-reduces: the max of the lse, then the weighted sums.  A layer moves
+O(B * Hq * D) bytes, never the cache.  Any other sequence-sharded k / v is
+gathered.
 
 The kernel function itself never sees a DTensor, so the CUDA path, the CPU
 plain version and the dry-run's ``meta`` route (``roofline/cost.py``) are
@@ -45,14 +55,24 @@ def local_attention(fn, q, k, v, *rows, head_dim_q: int = 2,
                          f"({q.placements}) is not supported: each rank's "
                          f"kernel call takes whole rows of the batch")
     q_pl = placements(act_spec(kind, tuple(q.shape), mesh), mesh)
+    out_pl = q_pl
     Hq, Hk = q.shape[head_dim_q], k.shape[head_dim_kv]
     names = dm.mesh_dim_names
+    # decode: the mesh dims that split the cache's sequence (k and v alike)
+    seq = [head_dim_q == 1 and all(
+        isinstance(t.placements[i], Shard) and t.placements[i].dim == 1
+        for t in (k, v)) and dm.size(i) > 1 for i in range(dm.ndim)]
+    if any(seq):
+        q_pl = [Replicate() if s else p for s, p in zip(seq, q_pl)]
     kv_pl, kv_grad_pl, rows_pl = [], [], []
     heads_split = 1
-    for name, p in zip(names, q_pl):
+    for i, (name, p) in enumerate(zip(names, q_pl)):
         batch = isinstance(p, Shard) and p.dim == 0
         rows_pl.append(Shard(0) if batch else Replicate())
-        if batch:
+        if seq[i]:                               # the cache's sequence
+            kv_pl.append(Shard(1))
+            kv_grad_pl.append(Shard(1))
+        elif batch:
             kv_pl.append(Shard(0))
             kv_grad_pl.append(Shard(0))
         elif isinstance(p, Shard):               # q's heads over this axis
@@ -76,8 +96,40 @@ def local_attention(fn, q, k, v, *rows, head_dim_q: int = 2,
     if heads_split > 1:
         kl, vl = (_kv_heads_of(t, head_rank, Hq // heads_split, Hq // Hk,
                                head_dim_kv) for t in (kl, vl))
-    out = fn(ql, kl, vl, *(r.to_local() for r in rows))
+    rl = [r.to_local() for r in rows]
+    if any(seq):
+        return _seq_sharded_decode(fn, q, ql, kl, vl, rl, k, seq, out_pl)
+    out = fn(ql, kl, vl, *rl)
     return dtensor(out, dm, q_pl, tuple(q.shape))
+
+
+def _seq_sharded_decode(fn, q, ql, kl, vl, rows, k, seq, out_pl):
+    """Decode attention of this rank's q rows (whole on the ``seq`` mesh
+    dims) against its part of a sequence-sharded cache, combined across
+    those dims; returned laid out as ``out_pl``.  ``rows[0]`` are the rows'
+    lengths over the whole cache."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.kernels.decode_attention.merge import merge_partials
+    from repro_torch.models.sharding import dtensor
+    dm = q.device_mesh
+    S_local = kl.shape[1]
+    first = compute_local_shape_and_global_offset(
+        k.shape, dm, k.placements)[1][1]
+    lens = (rows[0].to(torch.int32) - first).clamp(0, S_local)
+    lse = torch.empty(ql.shape[:2], dtype=torch.float32, device=ql.device)
+    o = fn(ql, kl, vl, lens, *rows[1:], lse=lse, out_dtype=torch.float32)
+    whole = list(q.placements)
+
+    def reduce(t, op):
+        # a partial over the sequence dims, reduced to every rank of them
+        part = [Partial(op) if s else p for s, p in zip(seq, whole)]
+        shape = tuple(q.shape[:2]) + tuple(t.shape[2:])
+        return dtensor(t, dm, part, shape).redistribute(dm, whole).to_local()
+
+    out, _ = merge_partials(o, lse, out_dtype=q.dtype, reduce=reduce)
+    return dtensor(out, dm, whole, tuple(q.shape)).redistribute(dm, out_pl)
 
 
 def _kv_heads_of(t, rank: int, hq_local: int, group: int, dim: int):

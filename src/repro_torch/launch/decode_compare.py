@@ -10,7 +10,10 @@ tree's ``decode_attention.cu``, and times one atom over every row
 (``decode_attention_atom``, bf16, L2 flushed before each launch, median of
 CUDA-event times by the tree's ``launch.timing.device_ms``) at each of
 ``COMPARE_SHAPES``; and again with every length 0 (``zero_lens_ms``: launch,
-prologue and merge, no key loaded).  ``floor_ms`` is the same harness around
+prologue and merge, no key loaded).  Where the tree's kernel writes an lse
+(``decode_attention_atom(..., lse=)``) it is timed with it too
+(``lse_ms``); ``sha256`` digests the output bits, which two trees fed the
+same inputs share where their arithmetic is the same.  ``floor_ms`` is the same harness around
 the smallest kernel (zeroing 16 KB): what any one launch measures at least.
 Each run holds its output against the plain version with ``headline_limit``.
 A run also times flash attention (K2) at the smoke's serving shape (``flash_attention_atom``, one llama3-8b prompt of 1000 tokens, causal,
@@ -26,6 +29,8 @@ the same limits.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import math
 import os
@@ -150,10 +155,19 @@ def one(src: str, iters: int) -> dict:
         if not err <= headline_limit(want):
             raise SystemExit(f"decode_compare: {src} {name}: err {err} > "
                              f"{headline_limit(want)}")
+        digest = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes()
+                                ).hexdigest()
+        lse_ms = None
+        if "lse" in inspect.signature(ops.decode_attention_atom).parameters:
+            lse = torch.empty(B, Hq, device=dev)
+            lse_ms = device_ms(lambda: ops.decode_attention_atom(
+                q, kc, vc, lens_t, o, start=0, num_rows=B * Hk, lse=lse),
+                iters=iters, flush=flush)
         lens_t.zero_()
         zero_ms = device_ms(atom, iters=iters, flush=flush)
-        out[name] = {"ms": ms, "zero_lens_ms": zero_ms, "max_abs_err": err,
-                     "err_limit": headline_limit(want),
+        out[name] = {"ms": ms, "lse_ms": lse_ms, "zero_lens_ms": zero_ms,
+                     "max_abs_err": err, "err_limit": headline_limit(want),
+                     "sha256": digest,
                      "took": (ops.plan(q, kc, vc) if hasattr(ops, "plan")
                               else None)}
     from repro_torch.kernels.flash_attention import ops as f_ops

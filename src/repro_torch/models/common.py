@@ -169,8 +169,14 @@ class _MmF32(torch.autograd.Function):
 
 def dot_f32(x, w):
     """``x @ w`` with the result kept in f32 (the LM head's logits).  On
-    ``meta`` (a dry-run) it takes the card's path."""
+    ``meta`` (a dry-run) it takes the card's path.  Serving f32 DTensors
+    take ``local_contract``'s layout (DTensor's own rule for ``matmul``
+    gathers a weight that FSDP splits over the data axes)."""
     if x.dtype == torch.float32:
+        if (is_dtensor(x) or is_dtensor(w)) and not torch.is_grad_enabled():
+            from repro_torch.models.sharding import local_contract
+            lead = "abcdefgh"[:x.ndim - 1]
+            return local_contract(f"{lead}k,km->{lead}m", x, w)
         return torch.matmul(x, w)
     if x.device.type in ("cuda", "meta"):
         lead = x.shape[:-1]

@@ -119,7 +119,11 @@ def _embed_sharded(table, tokens):
     a partial sum over the vocabulary's split), so the backward is a local
     index write (DTensor's rule for it fails on some torch versions).
     Tokens keep their batch split; the table is gathered over those mesh
-    dims and over any split of D."""
+    dims and over any split of D.  Where autograd does not record
+    (serving) and it moves fewer bytes, a split of D stays and the tokens
+    are gathered instead (the rows then relaid to the tokens' split): a
+    decode step's few ids against a table that FSDP splits over the data
+    axes."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
@@ -127,14 +131,22 @@ def _embed_sharded(table, tokens):
     dm = table.device_mesh
     tokens = as_dtensor(tokens, dm)
     tok_pl, tab_pl, grad_pl, out_pl = [], [], [], []
-    for pt, pw in zip(tokens.placements, table.placements):
-        rows = isinstance(pt, Shard) and pt.dim == 0
+    # bytes a rank moves to keep a split of D: the looked-up rows, relaid
+    rows_bytes = tokens.numel() * table.shape[1] * table.element_size() \
+        / dm.size()
+    keep_width = (not torch.is_grad_enabled()
+                  and rows_bytes < table.to_local().nbytes)
+    for i, (pt, pw) in enumerate(zip(tokens.placements, table.placements)):
+        width = (keep_width and isinstance(pw, Shard) and pw.dim == 1
+                 and dm.size(i) > 1)
+        rows = not width and isinstance(pt, Shard) and pt.dim == 0
         vocab = not rows and isinstance(pw, Shard) and pw.dim == 0
         tok_pl.append(Shard(0) if rows else Replicate())
-        tab_pl.append(Shard(0) if vocab else Replicate())
+        tab_pl.append(Shard(0) if vocab else Shard(1) if width
+                      else Replicate())
         grad_pl.append(Partial() if rows else tab_pl[-1])
         out_pl.append(Shard(0) if rows else Partial() if vocab
-                      else Replicate())
+                      else Shard(tokens.ndim) if width else Replicate())
     tok = tokens.redistribute(dm, tok_pl).to_local()
     t = table.redistribute(dm, tab_pl).to_local(grad_placements=grad_pl)
     _, offset = compute_local_shape_and_global_offset(table.shape, dm,

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import dot, fan_in_init, normal_init, zeros_init
 from repro_torch.models.sharding import pad as pad_
+from repro_torch.models.sharding import shard_dims
 
 _C = 8.0
 
@@ -103,7 +104,9 @@ def apply_rglru_block(params, x, *, h0=None, conv_state=None,
     if h0 is not None:
         hh = hh[:, 1:]
     h = hh.to(x.dtype)
-    out = dot(gate * h, params["w_out"])
+    # over a mesh: split as w_out's rows are, a partial sum and no gather of
+    # the weight (the carried state h0 is whole on ``model``)
+    out = dot(shard_dims(gate * h, ("dp", None, "tp")), params["w_out"])
     if return_state:
         return out, (h[:, -1], new_conv_state)
     return out

@@ -23,6 +23,8 @@ return their input.
 """
 from __future__ import annotations
 
+import math
+
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -310,6 +312,13 @@ def local_contract(spec: str, a, b, fn=None):
     gathered, and a partial sum reduced.  The gradient of an operand whole
     on a mesh dim that splits the result is a partial sum there.
 
+    Where autograd does not record (serving), a second operand split on
+    another letter than the first's stays in place if moving the first and
+    then the result (a partial sum reduced, or a split relaid) moves fewer
+    bytes than gathering the second: a decode step's activations are a few
+    rows, its weights (sharded over the data axes for FSDP) are not; a
+    prompt's activations outweigh them.
+
     DTensor's own rule for an einsum picks the layout that moves the fewest
     bytes, whatever the compute, and may split a merged dim (heads x
     head_dim) that then cannot unflatten: this keeps the products of the
@@ -325,6 +334,8 @@ def local_contract(spec: str, a, b, fn=None):
         p = t.placements[i]
         return letters[p.dim] if isinstance(p, Shard) else None
 
+    size_of = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+
     pa, pb, po = [], [], []
     for i in range(dm.ndim):
         xa, xb = letter(a, la, i), letter(b, lb, i)
@@ -336,6 +347,10 @@ def local_contract(spec: str, a, b, fn=None):
             pick = xb
         else:
             pick = None
+        if (pick is not None and pick == xa and xb not in (None, xa)
+                and not torch.is_grad_enabled()
+                and _moved_to_keep(a, b, out, size_of, i)):
+            pick = xb
         if pick is None:
             pa.append(Replicate())
             pb.append(Replicate())
@@ -350,8 +365,16 @@ def local_contract(spec: str, a, b, fn=None):
     bl = b.redistribute(dm, pb).to_local(grad_placements=[
         Partial() if isinstance(p, Replicate) and not isinstance(o, Replicate)
         else p for p, o in zip(pb, po)])
-    size = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
-    return dtensor(fn(spec, al, bl), dm, po, tuple(size[c] for c in out))
+    return dtensor(fn(spec, al, bl), dm, po, tuple(size_of[c] for c in out))
+
+
+def _moved_to_keep(a, b, out: str, size_of: dict, i: int) -> bool:
+    """Whether keeping ``b``'s split on mesh dim ``i`` (moving ``a``, then
+    the result to ``a``'s layout) moves fewer bytes a rank than gathering
+    ``b`` there."""
+    result = math.prod(size_of[c] for c in out) * a.element_size()
+    moved = a.to_local().nbytes + result / a.device_mesh.size()
+    return moved < b.to_local().nbytes * (a.device_mesh.size(i) - 1)
 
 
 def logsumexp_last(x):

@@ -29,11 +29,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (dot, einsum, fan_in_init, normal_init,
-                                       zeros_init)
+from repro_torch.models.common import (dot, einsum, fan_in_init, is_dtensor,
+                                       normal_init, zeros_init)
 from repro_torch.models.layers import apply_mlp
 from repro_torch.models.rglru import causal_conv
-from repro_torch.models.sharding import local_pointwise, local_rows
+from repro_torch.models.sharding import (local_pointwise, local_rows,
+                                         shard_dims)
 from repro_torch.models.sharding import pad as pad_
 from repro_torch.roofline import cost
 
@@ -214,12 +215,74 @@ def apply_mlstm_block(params, x, *, chunk: int = 256, state: dict = None,
     return out
 
 
+def _mlstm_step(q, k, v, ig, fg, C, n, m, *, k_rows=slice(None),
+                total=lambda t: t):
+    """One token's recurrence: q/k/v [B,H,hd] and the gate logits ig/fg
+    [B,H] (f32) from the state (C, n, m): (h [B,H,hd], C, n, m).  ``C`` may
+    hold only rows ``k_rows`` of its k dim (dim 2); then ``C q`` over them
+    is a partial sum, which ``total`` completes."""
+    logf = F.logsigmoid(fg)
+    m_new = torch.maximum(logf + m, ig)
+    f_s = torch.exp(logf + m - m_new)
+    i_s = torch.exp(ig - m_new)
+    C = (C * f_s[..., None, None]
+         + i_s[..., None, None] * k[..., k_rows, None] * v[..., None, :])
+    n = n * f_s[..., None] + i_s[..., None] * k
+    num = total((q[..., None, k_rows] @ C)[..., 0, :])
+    den = (q * n).sum(-1)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return h, C, n, m_new
+
+
+def _mlstm_step_sharded(q, k, v, ig, fg, C, n, m):
+    """``_mlstm_step`` over a mesh, the state C [B,H,hd,hd] left where
+    ``launch/shardings.cache_shardings`` puts it: rows over the data axes,
+    its k dim (or, where hd does not divide, its heads) over ``model``.
+    The token's q, k, v, gates and n, m (B x H x hd at most) are laid out
+    by C's rows and heads; each rank updates its block of C and reduces
+    ``C q`` over a split k dim: no collective carries the state, as in the
+    reference's step."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.models.sharding import as_dtensor, dtensor
+    dm = C.device_mesh
+    # the token tensors share C's first two dims (rows, heads)
+    pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+          for p in C.placements]
+    split = [p.is_shard(2) for p in C.placements]
+
+    def local(t):
+        return as_dtensor(t, dm).redistribute(dm, pl).to_local()
+
+    def total(num):
+        part = [Partial() if s else p for s, p in zip(split, pl)]
+        return dtensor(num, dm, part, tuple(q.shape)).redistribute(
+            dm, pl).to_local()
+
+    size, first = compute_local_shape_and_global_offset(C.shape, dm,
+                                                        C.placements)
+    h, c, nl, ml = _mlstm_step(
+        *(local(t) for t in (q, k, v, ig, fg)), C.to_local(), local(n),
+        local(m), k_rows=slice(first[2], first[2] + size[2]), total=total)
+    return (dtensor(h, dm, pl, tuple(q.shape)),
+            dtensor(c, dm, C.placements, tuple(C.shape)),
+            dtensor(nl, dm, pl, tuple(n.shape)),
+            dtensor(ml, dm, pl, tuple(m.shape)))
+
+
 def decode_mlstm_block(params, x, state: dict, conv_state):
-    """Single-token recurrent step.  x: [B,1,D] -> (out, state, conv)."""
+    """Single-token recurrent step.  x: [B,1,D] -> (out, state, conv).
+
+    Over a mesh the recurrence runs on the state's own layout
+    (``_mlstm_step_sharded``), and the inputs of v, the gates and the down
+    projection are split over ``model`` as their weights are, so that those
+    products leave partial sums instead of gathering the weights."""
     u = dot(x, params["w_up"])
     c_in, o_in = torch.chunk(u, 2, dim=-1)
     hist = torch.cat([conv_state.to(c_in.dtype), c_in], dim=1)  # [B,cw,Di]
     c_conv = F.silu(einsum("btd,td->bd", hist, params["conv_w"]))[:, None]
+    c_in = shard_dims(c_in, ("dp", None, "tp"))
     q = einsum("btd,dhk->bthk", c_conv, params["w_q"])[:, 0].float()
     k = (einsum("btd,dhk->bthk", c_conv, params["w_k"])[:, 0]
          / _k_scale(q.shape[-1], x.dtype)).float()
@@ -228,19 +291,13 @@ def decode_mlstm_block(params, x, state: dict, conv_state):
                  out_dtype=torch.float32)[:, 0] + params["b_ig"])
     fg = (einsum("btd,dh->bth", c_in, params["w_fg"],
                  out_dtype=torch.float32)[:, 0] + params["b_fg"])
-    logf = _logsigmoid(fg)
-    m_new = torch.maximum(logf + state["m"], ig)
-    f_s = torch.exp(logf + state["m"] - m_new)
-    i_s = torch.exp(ig - m_new)
-    C = (state["C"] * f_s[..., None, None]
-         + i_s[..., None, None] * k[..., :, None] * v[..., None, :])
-    n = state["n"] * f_s[..., None] + i_s[..., None] * k
-    num = (q[..., None, :] @ C)[..., 0, :]
-    den = (q * n).sum(-1)
-    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    st = (state[name] for name in _MLSTM_STATE)
+    step = _mlstm_step_sharded if is_dtensor(state["C"]) else _mlstm_step
+    h, C, n, m = step(q, k, v, ig, fg, *st)
     h = h.reshape(x.shape[0], 1, -1).to(x.dtype)
-    out = dot(h * F.silu(o_in), params["w_down"])
-    return out, {"C": C, "n": n, "m": m_new}, hist[:, 1:]
+    out = dot(shard_dims(h * F.silu(o_in), ("dp", None, "tp")),
+              params["w_down"])
+    return out, {"C": C, "n": n, "m": m}, hist[:, 1:]
 
 
 # ===========================================================================

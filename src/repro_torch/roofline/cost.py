@@ -290,12 +290,14 @@ def charge_flash_bwd(q, k, v, *, causal: bool, window: int) -> None:
                       dot_flops=dots, nbytes=nbytes)
 
 
-def charge_decode(q, k_cache, v_cache) -> None:
+def charge_decode(q, k_cache, v_cache, o, lse=None) -> None:
     """K1: each of the B*Hq query rows against every key of its cache row
     (the dry-run does not know the lengths; a decode cell is the step at the
-    end of its context)."""
+    end of its context); reads q, the caches and the lengths, writes o and,
+    if asked, the lse."""
     B, Hq, D = q.shape
     scores = B * Hq * k_cache.shape[1]
-    nbytes = 2 * _nbytes(q) + _nbytes(k_cache) + _nbytes(v_cache) + 4 * B
+    nbytes = (_nbytes(q) + _nbytes(o) + _nbytes(k_cache) + _nbytes(v_cache)
+              + 4 * B + (_nbytes(lse) if lse is not None else 0))
     counting().charge("decode_attention", flops=(4 * D + SCORE_FLOPS) * scores,
                       dot_flops=4 * D * scores, nbytes=nbytes)

@@ -271,6 +271,44 @@ def test_fake_group_dry_run_shards_the_step_over_8_ranks():
     assert r["dominant"] in ("compute", "memory", "collective")
 
 
+DECODE_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, sys
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="bfloat16")
+    res = dryrun.run_cell("llama3-8b", "decode_32k", cfg=cfg,
+                          shape=ShapeConfig("decode_32k", 1024, 8, "decode"),
+                          mesh_name="d2m4")
+    print(json.dumps(res))
+""")
+
+
+def test_fake_group_decode_leaves_a_sequence_sharded_cache_in_place():
+    """Reduced llama3-8b (1 kv head) decoding at the end of 1024 positions
+    on a (2, 4) mesh: the cache is sharded by sequence over ``model``, and
+    the step's collectives (the cross-rank combine, the residual stream's
+    reductions) stay below one layer's local K+V, which the step before
+    the combine gathered four times over; the kernel runs once a layer on
+    each rank, as on one."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", DECODE_SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["status"] == "ok" and res["chips"] == 8
+    tcfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                               dtype="bfloat16")
+    # one layer's K and V on one rank: 8 / 2 rows x 1024 / 4 positions
+    local_kv = 2 * (8 // 2) * (1024 // 4) * tcfg.n_kv_heads * tcfg.head_dim * 2
+    assert 0 < res["collectives"]["total"] < local_kv
+    assert res["hlo_ops"]["all-reduce"] > 0
+    c = _port("decode", tcfg, 8, 1024)
+    assert res["cost"]["kernel_calls"] == dict(c.kernels) == {
+        "decode_attention": transformer.attention_layers(tcfg)}
+
+
 # ---------------------------------------------------------------------------
 # the kernels' meta route
 # ---------------------------------------------------------------------------

@@ -142,6 +142,94 @@ def test_decode_split_kernel_random_shapes(cuda, nsplit, D, dtype):
         (og[start + num:] == 7.0).all())
 
 
+# the lse against the plain version's: f32 sums of exp in another order
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("nsplit", [1, 2, 4, 8])
+def test_decode_split_kernel_lse(cuda, nsplit, D, dtype):
+    """K1's lse on both routes at every split count, lens on the split
+    boundaries and 0: against the plain version's (``-inf`` where a row is
+    empty); the output with the lse bit-equal to the output without it; a
+    bf16 call's f32 output rounds to its bf16 output bit for bit; atoms
+    write their rows' lse in place and compose bit-equal in any order."""
+    rng = np.random.default_rng(700 + 10 * nsplit + D)
+    B, Hk = int(rng.integers(2, 5)), int(rng.integers(1, 5))
+    G = int(rng.choice([1, 4, 12, 20]))
+    S = int(rng.integers(*SPLIT_S[nsplit]))
+    q = _randn(rng, (B, Hk * G, D), dtype, cuda)
+    kc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    vc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    p = decode_ops.plan(q, kc, vc)
+    assert p["nsplit"] == nsplit
+    lens = _boundary_lens(rng, B, S, p["chunk"])
+    lens[0] = 0
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    lse = torch.full((B, Hk * G), 7.0, device=cuda)
+    got = decode_ops.decode_attention(q, kc, vc, lens, lse=lse)
+    wide = decode_ops.decode_attention(q, kc, vc, lens,
+                                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want, want_lse = decode_attention_ref(q, kc, vc, lens, return_lse=True)
+    assert (got.float() - want.float()).abs().max().item() \
+        <= DECODE_TOL[dtype]
+    empty = lens == 0
+    assert bool(torch.isneginf(lse[empty]).all())
+    assert (lse[~empty] - want_lse[~empty]).abs().max().item() <= LSE_TOL
+    assert torch.equal(got, decode_ops.decode_attention(q, kc, vc, lens))
+    assert wide.dtype == torch.float32 and torch.equal(wide.to(dtype), got)
+    R = B * Hk
+    order = tuple(int(i) for i in rng.permutation(min(3, R)))
+    lse3 = torch.full_like(lse, 7.0)
+    assert torch.equal(got, decode_ops.decode_attention(
+        q, kc, vc, lens, n_atoms=3, order=order, lse=lse3))
+    assert torch.equal(lse3, lse)
+    start, num = R // 3, max(1, R // 3)
+    o, one = torch.zeros_like(q), torch.full_like(lse, 7.0)
+    decode_ops.decode_attention_atom(q, kc, vc, lens, o, start=start,
+                                     num_rows=num, lse=one)
+    inside = torch.zeros(R, dtype=torch.bool, device=cuda)
+    inside[start:start + num] = True
+    lg, og = one.view(R, G), lse.view(R, G)
+    assert torch.equal(lg[inside], og[inside])
+    assert bool((lg[~inside] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_shards", [2, 4, 16])
+def test_decode_merge_partials_of_kernel_partials(cuda, n_shards, dtype):
+    """The serving headline's shape cut into sequence shards: each shard's
+    partial by K1 (f32 output and lse, lengths clamped to the shard), their
+    ``merge_partials`` against one K1 call over the whole cache."""
+    from repro_torch.kernels.decode_attention.merge import merge_partials
+    rng = np.random.default_rng(40 + n_shards)
+    B, Hq, Hk, D, S = 4, 32, 8, 128, 2048
+    q = _randn(rng, (B, Hq, D), dtype, cuda)
+    kc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    vc = _randn(rng, (B, S, Hk, D), dtype, cuda)
+    lens = torch.tensor([0, 1, S // n_shards, 1500], dtype=torch.int32,
+                        device=cuda)
+    whole_lse = torch.empty(B, Hq, device=cuda)
+    whole = decode_ops.decode_attention(q, kc, vc, lens, lse=whole_lse)
+    n = S // n_shards
+    parts, lses = [], []
+    for r in range(n_shards):
+        lse = torch.empty(B, Hq, device=cuda)
+        parts.append(decode_ops.decode_attention(
+            q, kc[:, r * n:(r + 1) * n], vc[:, r * n:(r + 1) * n],
+            (lens - r * n).clamp(0, n), lse=lse, out_dtype=torch.float32))
+        lses.append(lse)
+    o, lse = merge_partials(torch.stack(parts), torch.stack(lses),
+                            out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert (o.float() - whole.float()).abs().max().item() \
+        <= DECODE_TOL[dtype]
+    assert bool((o[0] == 0).all()) and bool(torch.isneginf(lse[0]).all())
+    assert (lse[1:] - whole_lse[1:]).abs().max().item() <= LSE_TOL
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_split_kernel_one_slot_long_context(cuda, dtype):
     """One slot of llama3-8b at its 8192-token context: 8 rows, 8 splits."""

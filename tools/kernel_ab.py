@@ -115,7 +115,8 @@ def _flash(torch, cs, dev, gen) -> dict:
 def _decode(torch, cs, dev, gen) -> dict:
     cases = []
     for c in DECODE_CASES:
-        err, plan = cs.check_decode(torch, dev, gen, dtype="float32", **c)
+        err, plan, _ = cs.check_decode(torch, dev, gen, dtype="float32",
+                                       **c)
         cases.append({**c, "max_abs_err": err, "took": plan})
     from repro_torch.kernels.decode_attention import ops
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)

@@ -47,8 +47,12 @@ def attention(kind: str):
         o.copy_(f_ref.attention_ref(q, k, v, causal=causal, window=window))
         return o
 
-    def decode_batched(q, kc, vc, lens, o, *, start, num_rows):
-        o.copy_(d_ref.decode_attention_ref(q, kc, vc, lens))
+    def decode_batched(q, kc, vc, lens, o, *, start, num_rows, lse=None):
+        out, row_lse = d_ref.decode_attention_ref(q, kc, vc, lens,
+                                                  return_lse=True)
+        o.copy_(out)
+        if lse is not None:
+            lse.copy_(row_lse)
         return o
 
     routes = {"kernel": saved[::-1],
