@@ -1,0 +1,5 @@
+"""Percent of the traced window in which no device event ran."""
+
+
+def read(run):
+    return run.idle_share()
