@@ -14,16 +14,27 @@ server with ``max_slots=1`` works like any other.
 
 SLO accounting mirrors the paper's measurement: per-request end-to-end
 latency (arrival -> last token) and time-to-first-token.
+
+Spans (``repro_torch.spans``, recorded only while a profiler records):
+``engine.step`` around each iteration, holding ``engine.admit`` (the
+batch-1 prefills, each an ``engine.prefill`` with its first token read
+back, after an ``engine.queue`` record of its wait from ``submit``),
+``engine.decode`` (the decode step's enqueue), ``engine.readback`` (the
+sampled tokens copied to the host, which waits for the device) and
+``engine.bookkeep`` (the per-slot loop after it).  A request's spans share
+its ``rid``.
 """
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
@@ -47,6 +58,9 @@ class Request:
     tokens: np.ndarray                 # [S] prompt
     arrival: float = 0.0
     max_new_tokens: Optional[int] = None
+    # stamped by ``submit`` on the spans' clock (time.perf_counter_ns)
+    t_submit_ns: int = 0
+    queued_ahead: int = 0              # requests queued before it
     # filled by the engine
     output: list[int] = field(default_factory=list)
     t_first_token: Optional[float] = None
@@ -86,6 +100,7 @@ class SlotServer:
         self.queue: list[Request] = []
         self.done: list[Request] = []
         self._rid = itertools.count()
+        self.n_steps = 0
         self._last = torch.zeros(B, dtype=torch.long,
                                  device=self.device)   # last sampled token
 
@@ -117,28 +132,37 @@ class SlotServer:
                max_new_tokens: Optional[int] = None) -> Request:
         req = Request(next(self._rid), np.asarray(tokens, np.int32),
                       arrival=self.clock(),
-                      max_new_tokens=max_new_tokens)
+                      max_new_tokens=max_new_tokens,
+                      t_submit_ns=time.perf_counter_ns(),
+                      queued_ahead=len(self.queue))
         self.queue.append(req)
         return req
 
     def _admit(self):
-        for slot in range(self.sc.max_slots):
-            if self.active[slot] or not self.queue:
-                continue
-            req = self.queue.pop(0)
-            toks = req.tokens[-(self.sc.max_len - 1):][None, :]
-            logits = self._prefill(toks, slot)
-            first = int(torch.argmax(logits, -1))
-            req.output.append(first)
-            req.t_first_token = self.clock()
-            self.slot_req[slot] = req
-            self.pos[slot] = toks.shape[1]
-            self.budget[slot] = (req.max_new_tokens or
-                                 self.sc.max_new_tokens) - 1
-            self.active[slot] = True
-            self._last[slot] = first
-            if first == self.sc.eos_id or self.budget[slot] <= 0:
-                self._finish(slot)
+        with spans.span("engine.admit") as sp:
+            queued = len(self.queue)
+            for slot in range(self.sc.max_slots):
+                if self.active[slot] or not self.queue:
+                    continue
+                req = self.queue.pop(0)
+                toks = req.tokens[-(self.sc.max_len - 1):][None, :]
+                spans.record("engine.queue", req.t_submit_ns, rid=req.rid,
+                             ahead=req.queued_ahead)
+                with spans.span("engine.prefill", rid=req.rid,
+                                tokens=toks.shape[1], slot=slot):
+                    logits = self._prefill(toks, slot)
+                    first = int(torch.argmax(logits, -1))
+                req.output.append(first)
+                req.t_first_token = self.clock()
+                self.slot_req[slot] = req
+                self.pos[slot] = toks.shape[1]
+                self.budget[slot] = (req.max_new_tokens or
+                                     self.sc.max_new_tokens) - 1
+                self.active[slot] = True
+                self._last[slot] = first
+                if first == self.sc.eos_id or self.budget[slot] <= 0:
+                    self._finish(slot)
+            sp.set(prefills=queued - len(self.queue))
 
     def _finish(self, slot: int):
         req = self.slot_req[slot]
@@ -150,26 +174,36 @@ class SlotServer:
     def step(self) -> int:
         """One engine iteration: admit then decode all active slots.
         Returns number of active slots decoded."""
-        self._admit()
-        if not self.active.any():
-            return 0
-        nxt = self._decode()
-        nxt_np = nxt.cpu().numpy()
-        n = 0
-        for slot in range(self.sc.max_slots):
-            if not self.active[slot]:
-                continue
-            n += 1
-            tok = int(nxt_np[slot])
-            req = self.slot_req[slot]
-            req.output.append(tok)
-            self.pos[slot] += 1
-            self.budget[slot] -= 1
-            if (tok == self.sc.eos_id or self.budget[slot] <= 0
-                    or self.pos[slot] >= self.sc.max_len - 1):
-                self._finish(slot)
-        self._last = nxt
-        return n
+        with spans.span("engine.step") as sp:
+            sp.set(step=self.n_steps, queue=len(self.queue))
+            self.n_steps += 1
+            self._admit()
+            if not self.active.any():
+                return 0
+            with spans.span("engine.decode") as sp:
+                if sp:
+                    sp.set(rows=int(self.active.sum()),
+                           kv_tokens=int(self.pos[self.active].sum()))
+                nxt = self._decode()
+            with spans.span("engine.readback"):
+                nxt_np = nxt.cpu().numpy()
+            with spans.span("engine.bookkeep") as sp:
+                n, done = 0, len(self.done)
+                for slot in range(self.sc.max_slots):
+                    if not self.active[slot]:
+                        continue
+                    n += 1
+                    tok = int(nxt_np[slot])
+                    req = self.slot_req[slot]
+                    req.output.append(tok)
+                    self.pos[slot] += 1
+                    self.budget[slot] -= 1
+                    if (tok == self.sc.eos_id or self.budget[slot] <= 0
+                            or self.pos[slot] >= self.sc.max_len - 1):
+                        self._finish(slot)
+                self._last = nxt
+                sp.set(tokens=n, finished=len(self.done) - done)
+            return n
 
     def run_until_drained(self, max_iters: int = 10_000) -> list[Request]:
         for _ in range(max_iters):

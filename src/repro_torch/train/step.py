@@ -10,6 +10,14 @@ they are summed in f32 and averaged.  Gradient compression quantizes the
 gradients to int8 blocks before the (conceptual) data-axis reduction and
 keeps the quantization error as feedback added to the next step.
 
+Spans (``repro_torch.spans``, recorded only while a profiler records, each
+also timed on the device): ``train.forward`` (``train_loss``) and
+``train.backward`` (``torch.autograd.grad`` and the gradients' zero fill
+and layout) once per microbatch, with its index and its label count, and
+``train.optimizer`` (``adamw_update``).  The autograd engine runs the
+backward on a thread of its own but on the forward's stream, so the
+events recorded before and after ``autograd.grad`` bracket all of it.
+
 On the card the attention layers' forward and backward are the
 flash-attention kernels (``kernels/flash_attention``); the rest is autograd
 of PyTorch operations, as the reference's is autodiff of jnp.
@@ -24,11 +32,13 @@ keeps the parameter's layout.
 """
 from __future__ import annotations
 
+import contextvars
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.registry import init_model, train_loss
@@ -38,6 +48,9 @@ from repro_torch.optim.optimizers import (AdamWConfig, OptState, adamw_init,
 from repro_torch.optim.schedules import cosine_schedule
 
 PyTree = Any
+
+# the microbatch ``loss_and_grads`` works on, for its spans
+_MICRO = contextvars.ContextVar("microbatch", default=0)
 
 
 @dataclass(frozen=True)
@@ -91,12 +104,18 @@ def loss_and_grads(cfg: ArchConfig, tc: TrainConfig, params: PyTree,
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
     with torch.enable_grad():
-        loss, metrics = train_loss(live, cfg, batch, remat=tc.remat,
-                                   loss_chunk=tc.loss_chunk,
-                                   attn_block=tc.attn_block)
-        g = torch.autograd.grad(loss, leaves, allow_unused=True)
-    g = [torch.zeros_like(p) if x is None else laid_out_as(x, p)
-         for p, x in zip(leaves, g)]
+        with spans.span("train.forward", device=True) as sp:
+            if sp:
+                sp.set(tokens=batch["labels"].numel(), micro=_MICRO.get())
+            loss, metrics = train_loss(live, cfg, batch, remat=tc.remat,
+                                       loss_chunk=tc.loss_chunk,
+                                       attn_block=tc.attn_block)
+        with spans.span("train.backward", device=True) as sp:
+            if sp:
+                sp.set(tokens=batch["labels"].numel(), micro=_MICRO.get())
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if x is None else laid_out_as(x, p)
+                 for p, x in zip(leaves, g)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, g))
 
@@ -124,8 +143,12 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig(), *,
         params = state.params
         if tc.n_micro > 1:
             gsum, lsum = None, 0.0
-            for mb in _split_micro(batch, tc.n_micro):
-                loss, _, g = loss_and_grads(cfg, tc, params, mb)
+            for i, mb in enumerate(_split_micro(batch, tc.n_micro)):
+                micro = _MICRO.set(i)
+                try:
+                    loss, _, g = loss_and_grads(cfg, tc, params, mb)
+                finally:
+                    _MICRO.reset(micro)
                 g = [x.to(torch.float32) for x in tree_leaves(g)]
                 gsum = g if gsum is None else [a.add_(b) for a, b in
                                                zip(gsum, g)]
@@ -143,8 +166,11 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig(), *,
 
         lr = cosine_schedule(state.opt.step, tc.lr, tc.total_steps,
                              tc.warmup_steps)
-        new_params, new_opt, opt_metrics = adamw_update(
-            params, grads, state.opt, opt_cfg, lr)
+        with spans.span("train.optimizer", device=True) as sp:
+            if sp:
+                sp.set(params=sum(p.numel() for p in tree_leaves(params)))
+            new_params, new_opt, opt_metrics = adamw_update(
+                params, grads, state.opt, opt_cfg, lr)
         out = {"loss": loss, "lr": lr, **metrics, **opt_metrics}
         return TrainState(new_params, new_opt, err_fb), out
 

@@ -4,6 +4,7 @@ Same converted float32 parameters, same prompts (numpy, seeded) -> the two
 ``SlotServer``s must emit IDENTICAL greedy token lists.  Float32 on both
 sides keeps the argmax free of rounding ties; no tolerance is involved.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 from _torch_port import make_pair
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.engine import SlotServer as JaxSlotServer
+from repro_torch import spans
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.serve import serve
 from repro_torch.models.common import tree_paths
@@ -66,18 +68,28 @@ def test_greedy_tokens_identical_for_moe_and_hybrid(arch):
     assert len(port_out) == 5 and any(len(o) < 8 for o in port_out)
 
 
-def test_greedy_tokens_identical_with_truncation_and_length_limit():
+@pytest.mark.parametrize("traced", [False, True], ids=["spans_off",
+                                                      "spans_on"])
+def test_greedy_tokens_identical_with_truncation_and_length_limit(traced):
     """A prompt longer than max_len-1 is cut to its tail, and a request that
-    reaches max_len-1 finishes early, in both engines alike."""
+    reaches max_len-1 finishes early, in both engines alike; the port's
+    tokens are the same with its spans recording (under a profiler)."""
     jcfg, jparams, tcfg, tparams = make_pair("llama3-8b", seed=1)
     prompts = _prompts(seed=2, n=4, lo=20, hi=40)
     kw = dict(max_slots=2, max_len=24, max_new_tokens=8)
     jax_out = _drain(JaxSlotServer(jcfg, jparams, serve_cfg=JaxServeConfig(**kw)),
                      prompts, 8)
-    port_out = _drain(SlotServer(tcfg, tparams, serve_cfg=ServeConfig(**kw),
-                                 device="cpu"), prompts, 8)
+    spans.clear()
+    with (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) if traced
+          else contextlib.nullcontext()):
+        port_out = _drain(SlotServer(tcfg, tparams,
+                                     serve_cfg=ServeConfig(**kw),
+                                     device="cpu"), prompts, 8)
     assert port_out == jax_out
     assert any(len(o) < 8 for o in port_out)
+    assert (len(spans.records()) > 0) == traced
+    spans.clear()
 
 
 def test_slotserver_matches_sequential_decode():
