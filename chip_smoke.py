@@ -732,6 +732,125 @@ def decode_headline(torch, dev, gen, flush, iters, shape="serving",
             "l2": "cold (flushed before every launch)"}
 
 
+# the fused AdamW's norm against a float64 norm of the same gradients: the
+# kernel squares and sums in f32 within a 16-byte vector and in f64 beyond
+# (~1e-7 of the norm at most); a leaf left out reads its share of the sum
+ADAMW_NORM_TOL = 1e-6
+
+
+def adamw_headline(torch, dev, real: bool, iters: int) -> dict:
+    """The fused AdamW (``csrc/adamw.cu``) at olmo-1b's leaves: bf16
+    parameters and gradients, f32 moments of a state 4 steps in.  Each
+    leaf's update bit-equal to the plain route's (``optimizers.adamw_leaf``)
+    given the same clip, the norm within ``ADAMW_NORM_TOL`` of a float64 one
+    and its own bits at a second call; the whole update (norm and every
+    leaf) timed against the plain route and, as a yardstick the port never
+    calls, ``torch.optim.AdamW(fused=True).step()`` (bf16 moments, no
+    clipping).  A rehearsal runs the plain route at the reduced widths."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.adamw import ops as fused
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import optimizers as opt
+    cfg = get_config("olmo-1b")
+    layout = transformer.init_lm(cfg if real else cfg.reduced(),
+                                 device="meta")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def draw(t, scale, dtype, positive=False):
+        x = _randn(torch, gen, t.shape, torch.float32, dev) * scale
+        return (x.abs() if positive else x).to(dtype)
+
+    ocfg = opt.AdamWConfig()
+    params = tree_map(lambda t: draw(t, 0.02, torch.bfloat16), layout)
+    grads = tree_map(lambda t: draw(t, 1e-3, torch.bfloat16), layout)
+    state = opt.OptState(
+        torch.tensor(4, dtype=torch.int32, device=dev),
+        tree_map(lambda t: draw(t, 1e-4, torch.float32), layout),
+        tree_map(lambda t: draw(t, 1e-7, torch.float32, positive=True),
+                 layout))
+    leaves = [tree_leaves(t) for t in (params, grads, state.mu, state.nu)]
+    n_params = sum(p.numel() for p in leaves[0])
+    lr = torch.tensor(ocfg.lr, device=dev)
+    stepf = (state.step + 1).to(torch.float32)
+    c1 = 1.0 - torch.pow(torch.tensor(ocfg.b1, device=dev), stepf)
+    c2 = 1.0 - torch.pow(torch.tensor(ocfg.b2, device=dev), stepf)
+
+    def clip_of(gnorm):
+        return torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                           max=1.0)
+
+    def plain():
+        clip = clip_of(opt.global_norm(grads))
+        return [opt.adamw_leaf(*x, ocfg, lr, clip, c1, c2)
+                for x in zip(*leaves)]
+
+    if not real:
+        plain()
+        return {"rehearsal": "the plain route at the reduced widths"}
+    want_norm = math.sqrt(sum(float(g.double().square().sum())
+                              for g in leaves[1]))
+    before = fused.launches
+    gnorm, again = fused.grad_norm(leaves[1]), fused.grad_norm(leaves[1])
+    norm_err = abs(float(gnorm) - want_norm) / want_norm
+    if not (norm_err <= ADAMW_NORM_TOL and torch.equal(gnorm, again)):
+        fail(f"adamw: the norm {float(gnorm)} ({float(again)} again) against "
+             f"float64 {want_norm}: {norm_err} > {ADAMW_NORM_TOL}")
+    # a leaf left out of the norm must read above the limit
+    dropped = fused.grad_norm(leaves[1][1:])
+    dropped_err = abs(float(dropped) - want_norm) / want_norm
+    if not dropped_err > ADAMW_NORM_TOL:
+        fail(f"adamw: the norm without its first leaf reads {dropped_err}, "
+             f"not above {ADAMW_NORM_TOL}")
+    clip = clip_of(gnorm)
+    differ = moved = 0
+    for p, g, mu, nu in zip(*leaves):
+        got = fused.update_leaf(p, g, mu, nu, lr=lr, clip=clip, c1=c1, c2=c2,
+                                b1=ocfg.b1, b2=ocfg.b2, eps=ocfg.eps,
+                                weight_decay=ocfg.weight_decay)
+        want = opt.adamw_leaf(p, g, mu, nu, ocfg, lr, clip, c1, c2)
+        differ += sum(int((a != b).sum()) for a, b in zip(got, want))
+        moved += int((got[0] != p).sum())
+        del got, want
+    if differ:
+        fail(f"adamw: {differ} values of the fused update differ from the "
+             f"plain route's given the same clip")
+    launches = fused.launches - before
+    torch.cuda.synchronize()
+    whole = lambda: opt.adamw_update(params, grads, state, ocfg, lr)
+    ms = time_ms(torch, whole, iters=iters)
+    norm_ms = time_ms(torch, lambda: fused.grad_norm(leaves[1]), iters=iters)
+    plain_ms = time_ms(torch, plain, iters=max(3, iters // 4))
+    lib_params = [torch.nn.Parameter(p.clone()) for p in leaves[0]]
+    for lp, g in zip(lib_params, leaves[1]):
+        lp.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=ocfg.lr, betas=(ocfg.b1, ocfg.b2),
+                            eps=ocfg.eps, weight_decay=ocfg.weight_decay,
+                            fused=True)
+    library_ms = time_ms(torch, lib.step, iters=iters)
+    del lib, lib_params
+    # bf16 p and g, f32 moments: read p, g (twice: norm and update), mu, nu;
+    # write p, mu, nu
+    per_param = 2 * 2 + 2 * 2 + 4 * 4
+    n_bytes = n_params * per_param
+    out = {"shape": {"arch": cfg.name, "leaves": len(leaves[0]),
+                     "params": n_params, "param_dtype": "bfloat16",
+                     "grad_dtype": "bfloat16", "moment_dtype": "float32"},
+           "route": "cuda", "max_abs_err": 0.0, "values_differing": differ,
+           "bf16_params_moved": moved, "norm_rel_err": norm_err,
+           "norm_limit": ADAMW_NORM_TOL, "dropped_leaf_norm_err": dropped_err,
+           "launches_checked": launches, "ms": ms, "norm_ms": norm_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.optim.AdamW(fused=True).step(): bf16 moments, "
+                      "no norm or clip",
+           "bytes": n_bytes, "bytes_per_param": per_param,
+           "bound_ms": n_bytes / H100.hbm_bw * 1e3, "bound_by": "bytes"}
+    del params, grads, state, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
 def causal_pairs(S: int, window: int = 0) -> int:
     """Unmasked (query, key) pairs of causal self-attention over S tokens,
     each query seeing at most its last ``window`` keys (0: all)."""
@@ -1363,6 +1482,7 @@ def kernels_phase(torch, dev, real: bool):
                          real=real)
     bwd = flash_bwd_cases(torch, dev, gen, real, iters=10 if real else 1)
     del flush
+    adamw = adamw_headline(torch, dev, real, iters=20 if real else 1)
     if real:
         torch.cuda.synchronize()
         # the f32 routes' registers and spills, from the build phase's log
@@ -1393,7 +1513,7 @@ def kernels_phase(torch, dev, real: bool):
          flash_attention_float32=k2_f32,
          flash_attention_whisper_encoder=k2_encoder, atom_matmul=k3,
          atom_matmul_float32=k3_f32,
-         flash_attention_bwd=bwd,
+         flash_attention_bwd=bwd, adamw=adamw,
          checked=["values", "atoms (n=3) in permuted order bit-equal to n=1",
                   "decode: atoms (n=R) in reversed order bit-equal to n=1",
                   "rows / tiles outside an atom untouched",
@@ -1430,8 +1550,12 @@ def kernels_phase(torch, dev, real: bool):
                   "f32 (olmo-1b's shape): every tile launched alone in a "
                   "random order bit-equal to one atom of all; single tiles "
                   "write what ops.bwd_tile maps; f32 within 1e-5 of "
-                  "max|value|"])
-    return k1, k2, k3, bwd["olmo_train"]
+                  "max|value|",
+                  "adamw at olmo-1b's leaves: every leaf's new parameter and "
+                  "moments bit-equal to the plain route's given the same "
+                  "clip; the norm within 1e-6 of float64, its own bits at a "
+                  "second call, a leaf left out above that limit"])
+    return k1, k2, k3, bwd["olmo_train"], adamw
 
 
 # ---------------------------------------------------------------------------
@@ -1440,6 +1564,7 @@ def kernels_phase(torch, dev, real: bool):
 
 def _wrappers():
     """Each kernel's launch counter: (module, attribute)."""
+    from repro_torch.kernels.adamw import ops as a_ops
     from repro_torch.kernels.atom_matmul import ops as m_ops
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.flash_attention import ops as f_ops
@@ -1447,10 +1572,21 @@ def _wrappers():
             "flash_attention": (f_ops, "launches"),
             "atom_matmul": (m_ops, "launches"),
             "flash_attention_bwd": (f_ops, "bwd_launches"),
-            "attention_delta": (f_ops, "delta_launches")}
+            "attention_delta": (f_ops, "delta_launches"),
+            "adamw": (a_ops, "launches")}
 
 
-NO_TRAINING = {"flash_attention_bwd": 0, "attention_delta": 0}
+NO_TRAINING = {"flash_attention_bwd": 0, "attention_delta": 0, "adamw": 0}
+
+
+def adamw_launches(cfg, steps: int) -> int:
+    """The fused AdamW's launches over ``steps`` steps of ``cfg``'s
+    parameters (``kernels/adamw/ops.launches_per_step``)."""
+    from repro_torch.kernels.adamw import ops
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import init_model
+    n = len(tree_leaves(init_model(cfg, seed=0, device="meta")))
+    return steps * ops.launches_per_step(n)
 
 
 def reset_counts():
@@ -2242,7 +2378,8 @@ def train_phase(torch, dev, *, real: bool, with_profile: bool = False):
     n_attn = transformer.attention_layers(cfg)
     per = steps * n_micro * n_attn
     want = {"flash_attention": per, "flash_attention_bwd": per,
-            "attention_delta": per, "decode_attention": 0, "atom_matmul": 0}
+            "attention_delta": per, "decode_attention": 0, "atom_matmul": 0,
+            "adamw": adamw_launches(cfg, steps)}
     if real and launches != want:
         fail(f"train: launch counts {launches} but the path implies {want}")
     if not (all(math.isfinite(x) for x in losses)
@@ -2378,7 +2515,7 @@ def train_hybrid_phase(torch, dev, *, real: bool) -> dict:
         per = steps * n_micro * n_attn
         want = {"flash_attention": per, "flash_attention_bwd": per,
                 "attention_delta": per, "decode_attention": 0,
-                "atom_matmul": 0}
+                "atom_matmul": 0, "adamw": adamw_launches(cfg, steps)}
         if dev.type == "cuda" and launches != want:
             fail(f"train_hybrid {row}: launch counts {launches} but the "
                  f"path implies {want}")
@@ -2559,7 +2696,7 @@ def checkpoint_phase(torch, dev, run: dict, *, real: bool):
         per = 3 * tc.n_micro * transformer.attention_layers(cfg)
         want = {"flash_attention": per, "flash_attention_bwd": per,
                 "attention_delta": per, "decode_attention": 0,
-                "atom_matmul": 0}
+                "atom_matmul": 0, "adamw": adamw_launches(cfg, 3)}
         if real and launches != want:
             fail(f"checkpoint: launch counts {launches} but the path implies "
                  f"{want}")
@@ -2653,9 +2790,11 @@ def mesh_phase(torch, dev, run: dict, *, real: bool) -> dict:
                               on_step=on_step)
         seconds = time.perf_counter() - t0
         launches = read_counts()
-        want = run["launches"]
+        # DTensor leaves take the plain AdamW route
+        want = {**run["launches"], "adamw": 0}
         if launches != want:
-            fail(f"mesh: launch counts {launches}, the train phase's {want}")
+            fail(f"mesh: launch counts {launches}, the train phase's {want} "
+                 f"(no fused AdamW over a mesh)")
         bit_equal = losses == run["losses"]
         rel = _max_rel(losses, run["losses"])
         if not bit_equal and rel > 1e-5:
@@ -3617,7 +3756,7 @@ def main(argv) -> int:
              flags=" ".join(build.NVCC_FLAGS),
              ptxas={n: build.ptxas_report(n) for n in build.KERNELS})
 
-    k1, k2, k3, kb = kernels_phase(torch, dev, real)
+    k1, k2, k3, kb, kw = kernels_phase(torch, dev, real)
 
     sizes = (dict(n_requests=8, max_slots=4, max_len=2048, max_new=16) if real
              else dict(n_requests=3, max_slots=2, max_len=32, max_new=4))
@@ -3708,7 +3847,11 @@ def main(argv) -> int:
               "src/repro/kernels/atom_matmul/kernel.py:57", k3),
         entry("flash_attention_bwd",
               "jax.grad of src/repro/models/attention.py:141 "
-              "blocked_attention (XLA autodiff, no Pallas kernel)", kb)]}),
+              "blocked_attention (XLA autodiff, no Pallas kernel)", kb),
+        entry("adamw", "none: the reference's AdamW update "
+              "(src/repro/optim/optimizers.py adamw_update) is jnp under "
+              "XLA; bound by bytes, 24 B a parameter at bf16 gradients "
+              "(28 at f32)", kw)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -216,14 +216,16 @@ def tree_leaves(tree: PyTree) -> list:
 
 def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
     """``leaves`` (in ``tree_paths`` order) in the nesting of ``like``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _unflatten(node: PyTree, it) -> PyTree:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would hold ``leaves`` (a whole new parameter
+    # tree, say) until the garbage collector next runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_map(fn, tree: PyTree) -> PyTree:

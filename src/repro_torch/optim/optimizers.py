@@ -16,6 +16,13 @@ Over a mesh of ranks the blocks are the reference's global blocks of the
 whole leaf, never blocks of a rank's shard: a DTensor is quantized on each
 rank's piece only where that piece is whole blocks, else its last dim is
 gathered first (``_block_placements``).
+
+The route is chosen by what the inputs are (``fused_route``): where every
+leaf is a plain CUDA tensor and the moments are f32 or bf16, the update
+takes the fused kernels of ``kernels/adamw`` (one norm pass over all
+gradients, one update pass a leaf, bit-equal to the plain route's update
+given the same clip); CPU tensors, int8 moments and DTensor leaves take the
+plain PyTorch route, leaf by leaf (``global_norm``, ``adamw_leaf``).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.adamw import ops as fused
 from repro_torch.models.common import (is_dtensor, tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.models.sharding import dtensor, laid_out_as
@@ -193,39 +201,106 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def adamw_leaf(p, g, mu, nu, cfg: AdamWConfig, lr, clip, c1, c2):
+    """One leaf's AdamW step on the plain route, in f32; the moments
+    round-trip through the configured encoding.  Returns (new p, new mu,
+    new nu)."""
+    g = g.to(torch.float32) * clip
+    # an int8 moment decodes as whole blocks: back to the leaf's layout
+    mu = laid_out_as(_decode_moment(mu, cfg.moment_dtype), p)
+    nu = laid_out_as(_decode_moment(nu, cfg.moment_dtype, positive=True), p)
+    mu = cfg.b1 * mu + (1 - cfg.b1) * g
+    nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
+    upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+    if p.ndim >= 2:                       # decay matrices only
+        upd = upd + cfg.weight_decay * p.to(torch.float32)
+    new_p = (p.to(torch.float32) - lr * upd).to(p.dtype)
+    return (new_p, _encode_moment(mu, cfg.moment_dtype),
+            _encode_moment(nu, cfg.moment_dtype, positive=True))
+
+
+_MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def fused_route(params: PyTree, grads: PyTree, state: OptState,
+                cfg: AdamWConfig) -> bool:
+    """Whether the update takes the fused kernels: every leaf of params,
+    grads and moments a plain tensor, one of them on a CUDA device, the
+    moments f32 or bf16.  int8 moments and DTensor leaves take the plain
+    route, as does a tree with no CUDA leaf.  Raises for a tree with a CUDA
+    leaf that the kernels cannot take (another device beside it, a dtype
+    other than float32 and bfloat16, moments not of the configured dtype).
+    Any layout is taken: ``adamw_update`` hands the kernels each operand
+    contiguous."""
+    moments = tree_leaves(state.mu) + tree_leaves(state.nu)
+    if cfg.moment_dtype not in _MOMENT_DTYPES or any(
+            isinstance(m, QTensor) for m in moments):
+        return False
+    leaves = tree_leaves(params) + tree_leaves(grads) + moments
+    if any(is_dtensor(x) for x in leaves):
+        return False
+    cuda = [x.device for x in leaves if x.device.type == "cuda"]
+    if not cuda:
+        return False
+    for i, x in enumerate(leaves):
+        if x.device != cuda[0]:
+            raise ValueError(f"fused AdamW: leaf {i} of params, grads and "
+                             f"moments lies on {x.device}, another on "
+                             f"{cuda[0]}")
+        if x.dtype not in _MOMENT_DTYPES.values():
+            raise TypeError(f"fused AdamW takes float32 and bfloat16, not "
+                            f"{x.dtype} (leaf {i} of params, grads and "
+                            f"moments)")
+    want = _MOMENT_DTYPES[cfg.moment_dtype]
+    if any(m.dtype != want for m in moments):
+        raise TypeError(f"fused AdamW: moments of "
+                        f"{sorted({str(m.dtype) for m in moments})}, the "
+                        f"configuration's are {want}")
+    return True
+
+
 def adamw_update(params: PyTree, grads: PyTree, state: OptState,
                  cfg: AdamWConfig, lr: Optional[torch.Tensor] = None
                  ) -> tuple[PyTree, OptState, dict]:
-    """One AdamW step, leaf by leaf in f32; moments round-trip through the
-    configured encoding.  ``lr`` (f32 scalar tensor) defaults to
-    ``cfg.lr``.  Returns (new params, new state, {"grad_norm"})."""
+    """One AdamW step, leaf by leaf in f32, on the route ``fused_route``
+    picks; moments round-trip through the configured encoding.  ``lr`` (f32
+    scalar tensor) defaults to ``cfg.lr``.  Returns (new params, new state,
+    {"grad_norm"})."""
+    on_kernels = fused_route(params, grads, state, cfg)
     step = state.step + 1
     lr = _f32(cfg.lr, step) if lr is None else lr
-    gnorm = global_norm(grads)
+    trees = (params, grads, state.mu, state.nu)
+    if on_kernels:
+        # the kernels read flat memory: each operand contiguous, a copy only
+        # of one that is not (a tied embedding's gradient from autograd, a
+        # dequantized gradient cut from its padded blocks)
+        ps, gs, mus, nus = ([x.contiguous() for x in tree_leaves(t)]
+                            for t in trees)
+        gnorm = fused.grad_norm(gs)
+    else:
+        ps, gs, mus, nus = (tree_leaves(t) for t in trees)
+        gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.grad_clip > 0 else 1.0)
     stepf = step.to(torch.float32)
     c1 = 1.0 - torch.pow(_f32(cfg.b1, step), stepf)
     c2 = 1.0 - torch.pow(_f32(cfg.b2, step), stepf)
 
-    def leaf(p, g, mu, nu):
-        g = g.to(torch.float32) * clip
-        # an int8 moment decodes as whole blocks: back to the leaf's layout
-        mu = laid_out_as(_decode_moment(mu, cfg.moment_dtype), p)
-        nu = laid_out_as(_decode_moment(nu, cfg.moment_dtype, positive=True),
-                         p)
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
-        upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-        if p.ndim >= 2:                       # decay matrices only
-            upd = upd + cfg.weight_decay * p.to(torch.float32)
-        new_p = (p.to(torch.float32) - lr * upd).to(p.dtype)
-        return (new_p, _encode_moment(mu, cfg.moment_dtype),
-                _encode_moment(nu, cfg.moment_dtype, positive=True))
+    if on_kernels:
+        dev = gnorm.device
+        lr, clip, c1, c2 = (torch.as_tensor(x, dtype=torch.float32,
+                                            device=dev).reshape(())
+                            for x in (lr, clip, c1, c2))
 
-    trip = [leaf(p, g, m, n) for p, g, m, n in
-            zip(tree_leaves(params), tree_leaves(grads),
-                tree_leaves(state.mu), tree_leaves(state.nu))]
+        def leaf(p, g, mu, nu):
+            return fused.update_leaf(p, g, mu, nu, lr=lr, clip=clip, c1=c1,
+                                     c2=c2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                                     weight_decay=cfg.weight_decay)
+    else:
+        def leaf(p, g, mu, nu):
+            return adamw_leaf(p, g, mu, nu, cfg, lr, clip, c1, c2)
+
+    trip = [leaf(*x) for x in zip(ps, gs, mus, nus)]
     new_p = tree_unflatten(params, [t[0] for t in trip])
     new_mu = tree_unflatten(params, [t[1] for t in trip])
     new_nu = tree_unflatten(params, [t[2] for t in trip])

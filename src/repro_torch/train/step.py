@@ -14,7 +14,8 @@ Spans (``repro_torch.spans``, recorded only while a profiler records, each
 also timed on the device): ``train.forward`` (``train_loss``) and
 ``train.backward`` (``torch.autograd.grad`` and the gradients' zero fill
 and layout) once per microbatch, with its index and its label count, and
-``train.optimizer`` (``adamw_update``).  The autograd engine runs the
+``train.optimizer`` (``adamw_update``, with ``fused``: the leaves the
+fused AdamW kernel updated).  The autograd engine runs the
 backward on a thread of its own but on the forward's stream, so the
 events recorded before and after ``autograd.grad`` bracket all of it.
 
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.adamw import ops as fused_adamw
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.registry import init_model, train_loss
 from repro_torch.models.sharding import laid_out_as
@@ -167,10 +169,15 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig(), *,
         lr = cosine_schedule(state.opt.step, tc.lr, tc.total_steps,
                              tc.warmup_steps)
         with spans.span("train.optimizer", device=True) as sp:
-            if sp:
-                sp.set(params=sum(p.numel() for p in tree_leaves(params)))
+            launched = fused_adamw.launches
             new_params, new_opt, opt_metrics = adamw_update(
                 params, grads, state.opt, opt_cfg, lr)
+            if sp:
+                # the fused route updates every leaf; the plain one launches
+                # none of its kernels
+                leaves = tree_leaves(params)
+                sp.set(params=sum(p.numel() for p in leaves),
+                       fused=len(leaves) * (fused_adamw.launches > launched))
         out = {"loss": loss, "lr": lr, **metrics, **opt_metrics}
         return TrainState(new_params, new_opt, err_fb), out
 

@@ -25,8 +25,8 @@ IMPORT = re.compile(
 def test_port_has_files():
     assert len(FILES) > 20
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) == [
-        "atom_matmul.cu", "decode_attention.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu"]
+        "adamw.cu", "atom_matmul.cu", "decode_attention.cu",
+        "flash_attention.cu", "flash_attention_bwd.cu"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
